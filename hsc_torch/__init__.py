@@ -4,11 +4,16 @@ The JAX package `hsc_tpu` is the reference; this package is its counterpart
 for an NVIDIA Hopper card and mirrors its layout and names:
 
   device        — explicit device selection and the spec's f32 numerics
-  params        — one level's bank, Gram and decode tables as tensors
-  ops           — init correlation, greedy loop (plain + CUDA kernel),
-                  integer decode (plain + CUDA kernel), batch pipeline
-  models        — ConvolutionalMatchingPursuit / ...SparseCoder (nn.Module)
-  runtime       — CorpusEncoder: encode -> container -> integer decode
+  params        — one level's bank, Gram, decode and int8 init tables
+  ops           — init correlation, level hand-off maps, greedy loop
+                  (`mp_kernels`), int8 level >= 1 init (`init_kernels`),
+                  integer decode (`decode_integer_kernel`), ordered decode
+                  (`decode_kernel`) — each kernel wrapper beside its plain
+                  PyTorch version — and the batch and level pipelines
+  models        — ConvolutionalMatchingPursuit / ...SparseCoder and the
+                  multi-level HierarchicalConvolutionalSparseCoder (nn.Module)
+  runtime       — CorpusEncoder: the hierarchy's encode -> container ->
+                  decode, both decode modes, top-only or distributed
 
 Shared, not ported: `config`, `dictionary`, `signal`, `oracle`, `io` and
 `utils` import no JAX, so the port imports them from `hsc_tpu` as they are —

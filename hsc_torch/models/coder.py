@@ -1,16 +1,16 @@
 """User-facing coder classes — counterparts of `hsc_tpu.models.coder`.
 
 `ConvolutionalMatchingPursuit` binds one (bank, Gram) pair and runs the
-batched encode; `ConvolutionalSparseCoder` is the single-level
-encode/reconstruct pair; `HierarchicalConvolutionalSparseCoder` drives the
-levels and the integer decode.  This slice of the port covers ONE level
-(the flagship codec); more levels, the int8 level >= 1 init and the ordered
-decode raise `NotImplementedError` naming the ROADMAP item that brings them.
+batched encode, from a signal (the f32 init) or, at levels >= 1 under
+hier_init='int8', from the exact integer map of the level below (the int8
+init); `ConvolutionalSparseCoder` is one level; and
+`HierarchicalConvolutionalSparseCoder` drives the levels, the feature-map
+hand-offs between them and both decode modes.
 
-`backend`: 'cuda' runs the hand-written CUDA kernels (greedy loop and
-integer decode), 'torch' their plain PyTorch versions, 'auto' picks 'cuda'
-exactly when the device is a CUDA device.  Both emit identical streams and
-identical decoded bytes.
+`backend`: 'cuda' runs the hand-written CUDA kernels (greedy loop, sparse
+int8 init, integer and ordered decode), 'torch' their plain PyTorch
+versions, 'auto' picks 'cuda' exactly when the device is a CUDA device.
+Both emit identical streams and identical decoded bytes.
 """
 
 from __future__ import annotations
@@ -23,16 +23,22 @@ from hsc_tpu.dictionary import MultilevelDictionary
 from hsc_tpu.oracle.mp import LevelStream, rep_quantize
 
 from ..device import resolve_device
-from ..ops.decode import mp_decode_integer_batch_torch
+from ..ops.decode import mp_decode_batch_torch, mp_decode_integer_batch_torch
 from ..ops.decode_integer_kernel import mp_decode_integer_batch
+from ..ops.decode_kernel import mp_decode_batch
 from ..ops.encode import (
     EncodedBlock,
     encode_init_batched,
+    encode_init_int_batched,
+    encode_init_int_raw_torch,
+    feature_map,
+    feature_map_int,
     mp_encode_from_init_torch,
     quantizer_steps,
 )
+from ..ops.init_kernels import sparse_init_raw
 from ..ops.mp_kernels import mp_loop
-from ..params import LevelParams, level_params_from_numpy
+from ..params import LevelParams, int8_bank_tables, level_params_from_numpy
 
 
 def resolve_backend(backend: str, device: torch.device) -> str:
@@ -69,8 +75,9 @@ def level_streams(enc: EncodedBlock) -> list[LevelStream]:
 
 
 class ConvolutionalMatchingPursuit(nn.Module):
-    """Greedy convolutional MP bound to one augmented bank (bank, Gram and
-    selection weights are buffers)."""
+    """Greedy convolutional MP bound to one augmented bank (bank, Gram,
+    selection weights and, under ``int8_init``, the int8 init planes are
+    buffers)."""
 
     def __init__(
         self,
@@ -88,23 +95,28 @@ class ConvolutionalMatchingPursuit(nn.Module):
         device,
     ):
         super().__init__()
-        if int8_init:
-            raise NotImplementedError(
-                "hier_init='int8' (the level >= 1 int8 init) is not ported yet "
-                "(ROADMAP Queue 1, 'Hierarchy'; Queue 2, '_sparse_init_kernel')"
-            )
         self.device = resolve_device(device)
         self.backend = resolve_backend(backend, self.device)
+        n_raw = n_raw if n_raw is not None else int(bank.shape[0])
+        # int8 init (hier_init='int8', levels >= 1): the digit planes of the
+        # RAW sub-bank; singleton rows are exact passthroughs of the map
+        self.int8_init = bool(int8_init)
+        planes, self.bank_step = (
+            int8_bank_tables(np.asarray(bank)[:n_raw]) if self.int8_init else (None, None)
+        )
         params = level_params_from_numpy(
             bank,
             np.ascontiguousarray(np.asarray(gram).transpose(1, 0, 2)),
-            n_raw=n_raw if n_raw is not None else int(bank.shape[0]),
+            bank_planes=planes,
+            bank_step=self.bank_step,
+            n_raw=n_raw,
             singleton_weight=singleton_weight,
             device=self.device,
         )
         self.register_buffer("bank", params.bank)
         self.register_buffer("gram_t", params.gram_t)
         self.register_buffer("weights", params.weights)
+        self.register_buffer("bank_planes", params.bank_planes)
         self.num_coefs = int(num_coefs)
         self.settings = dict(
             num_coefs=int(num_coefs),
@@ -115,7 +127,10 @@ class ConvolutionalMatchingPursuit(nn.Module):
 
     @property
     def params(self) -> LevelParams:
-        return LevelParams(self.bank, self.gram_t, self.weights, None, None)
+        return LevelParams(
+            self.bank, self.gram_t, self.weights, None, None,
+            bank_planes=self.bank_planes, bank_step=self.bank_step,
+        )
 
     def loop_stage(self, scores0, e0, scale, inv) -> EncodedBlock:
         """The greedy-loop stage on a precomputed init; `scale`/`inv` are the
@@ -131,6 +146,27 @@ class ConvolutionalMatchingPursuit(nn.Module):
         if xs.dim() == 2:
             xs = xs[:, :, None]
         scores0, e0, peak = encode_init_batched(xs, self.bank)
+        scale, inv = quantizer_steps(peak.cpu().numpy(), self.settings["amp_bits"])
+        return self.loop_stage(scores0, e0, scale, inv)
+
+    def init_int_batched(self, m_int: torch.Tensor, prev_scale: torch.Tensor):
+        """The int8 init bound to this bank (needs ``int8_init=True``):
+        ``m_int [B, N, C]`` int32 exact maps, ``prev_scale [B]`` f32 (the
+        emitting level's scales) -> ``(scores0, e0, peak)``.  The raw rows
+        come from the sparse-init kernel on backend 'cuda' and from the
+        plain dense form on 'torch' — the same bits."""
+        if not self.int8_init:
+            raise ValueError("init_int_batched needs a coder built with int8_init=True")
+        raw = sparse_init_raw if self.backend == "cuda" else encode_init_int_raw_torch
+        return encode_init_int_batched(
+            m_int, prev_scale, self.bank_planes, self.bank_step, raw=raw
+        )
+
+    def compute_coefficients_batch_int(self, m_int, prev_scale) -> EncodedBlock:
+        """Encode exact integer maps ``[B, N, C]`` with their emitting
+        level's f32 scales through the int8 init — the level >= 1 entry
+        point under hier_init='int8'."""
+        scores0, e0, peak = self.init_int_batched(m_int, prev_scale)
         scale, inv = quantizer_steps(peak.cpu().numpy(), self.settings["amp_bits"])
         return self.loop_stage(scores0, e0, scale, inv)
 
@@ -166,27 +202,42 @@ class ConvolutionalSparseCoder(nn.Module):
 
 
 class HierarchicalConvolutionalSparseCoder(nn.Module):
-    """Encode/reconstruct over a MultilevelDictionary — this slice: one
-    level, integer decode."""
+    """Multi-level encode/reconstruct over a MultilevelDictionary: level 0
+    codes the signal, level k codes the quantized level k-1 coefficient map
+    (through the int8 init under hier_init='int8', the f32 init otherwise),
+    and the top stream decodes in either mode."""
 
     def __init__(self, mld: MultilevelDictionary, backend: str = "auto", *, device):
         super().__init__()
         self.mld = mld
         self.cfg = mld.config
-        if self.cfg.num_levels != 1:
-            raise NotImplementedError(
-                f"{self.cfg.num_levels}-level dictionaries are not ported yet "
-                "(ROADMAP Queue 1, 'Hierarchy'); this slice runs one level"
-            )
         self.device = resolve_device(device)
         self.backend = resolve_backend(backend, self.device)
         self.coders = nn.ModuleList(
-            [ConvolutionalSparseCoder(mld, 0, backend=self.backend, device=self.device)]
+            [
+                ConvolutionalSparseCoder(mld, level, backend=self.backend, device=self.device)
+                for level in range(self.cfg.num_levels)
+            ]
         )
+        # ordered-decode banks: the signal-space representations per level
+        self._rep_banks = {
+            k: torch.from_numpy(mld.representations(k)[:, :, None]).to(self.device)
+            for k in range(self.cfg.num_levels)
+        }
         # integer-decode tables per (level, rep_bits): streams are
         # self-describing, so a decoder may need another rep_bits than the
         # dictionary config's
         self._rep_q_banks: dict[tuple[int, int], tuple[torch.Tensor, np.float32]] = {}
+
+    def handoff(self, level: int, enc: EncodedBlock):
+        """The level -> level+1 hand-off of a batch (`hsc_tpu`'s
+        `fmap_int_batched` / `fmap_batched`): ``(int32 maps [B, npos, K],
+        scales)`` for the int8 init, else the f32 maps."""
+        npos, k = self.cfg.num_positions(level), self.mld.num_atoms(level)
+        if self.coders[level + 1].mp.int8_init:
+            m_int = feature_map_int(enc.positions, enc.atoms, enc.codes, enc.count, npos=npos, k=k)
+            return m_int, enc.scale
+        return feature_map(enc, npos=npos, k=k)
 
     def _rep_q(self, level: int, rep_bits: int):
         key = (level, int(rep_bits))
@@ -195,13 +246,33 @@ class HierarchicalConvolutionalSparseCoder(nn.Module):
             self._rep_q_banks[key] = (torch.from_numpy(q).to(self.device), step)
         return self._rep_q_banks[key]
 
+    def encode_batch_device(self, xs) -> list[EncodedBlock]:
+        """Encode ``[B, N]`` (or ``[B, N, 1]``) blocks level by level -> one
+        batched device `EncodedBlock` per level."""
+        seq = torch.as_tensor(xs, dtype=torch.float32)
+        if seq.dim() == 2:
+            seq = seq[:, :, None]
+        levels: list[EncodedBlock] = []
+        for level, coder in enumerate(self.coders):
+            mp = coder.mp
+            if mp.int8_init:
+                enc = mp.compute_coefficients_batch_int(*seq)
+            else:
+                enc = mp.compute_coefficients_batch(seq)
+            levels.append(enc)
+            if level + 1 < self.cfg.num_levels:
+                seq = self.handoff(level, enc)
+        return levels
+
     def encode_batch(self, xs) -> list[list[LevelStream]]:
         """Encode ``[B, N]`` blocks -> per-block lists of per-level streams."""
-        return [[s] for s in self.coders[0].encode_batch(xs)]
+        per_level = [level_streams(to_host(e)) for e in self.encode_batch_device(xs)]
+        return [list(block) for block in zip(*per_level)]
 
     def reconstruct_batch(self, streams, level=None, mode=None, rep_bits=None) -> np.ndarray:
         """Batched reconstruction ``[B, block_size]``, bitwise
-        `oracle.mp.mp_decode_integer` per block."""
+        `oracle.mp.mp_decode_integer` (mode 'integer') or
+        `oracle.hierarchical_decode` (mode 'ordered') per block."""
         dev = self.reconstruct_batch_device(streams, level=level, mode=mode, rep_bits=rep_bits)
         return dev.cpu().numpy()[:, :, 0]
 
@@ -209,16 +280,18 @@ class HierarchicalConvolutionalSparseCoder(nn.Module):
         """`reconstruct_batch` without the host copy: a device tensor
         ``[B, block_size, 1]``."""
         pos, atm, cds, cnt, scl, level, mode = self._decode_arrays(streams, level, mode)
-        if mode != "integer":
-            raise NotImplementedError(
-                f"decode_mode={mode!r} is not ported yet (ROADMAP Queue 1, "
-                "'Ordered decode reference'; Queue 2, '_decode_kernel')"
-            )
-        rep_q, step = self._rep_q(level, rep_bits or self.cfg.rep_bits)
-        amp_step = (scl * np.float32(step)).astype(np.float32)  # f32(scale * step)
-        args = [torch.from_numpy(a).to(self.device) for a in (pos, atm, cds, cnt, amp_step)]
-        dec = mp_decode_integer_batch if self.backend == "cuda" else mp_decode_integer_batch_torch
-        return dec(*args, rep_q, n=self.cfg.block_size)
+        cuda = self.backend == "cuda"
+        if mode == "integer":
+            rep_q, step = self._rep_q(level, rep_bits or self.cfg.rep_bits)
+            amp_step = (scl * np.float32(step)).astype(np.float32)  # f32(scale * step)
+            args = [torch.from_numpy(a).to(self.device) for a in (pos, atm, cds, cnt, amp_step)]
+            dec = mp_decode_integer_batch if cuda else mp_decode_integer_batch_torch
+            return dec(*args, rep_q, n=self.cfg.block_size)
+        if mode != "ordered":
+            raise ValueError(f"unknown decode mode {mode!r}")
+        args = [torch.from_numpy(a).to(self.device) for a in (pos, atm, cds, cnt, scl)]
+        dec = mp_decode_batch if cuda else mp_decode_batch_torch
+        return dec(*args, self._rep_banks[level], n=self.cfg.block_size)
 
     def _decode_arrays(self, streams, level=None, mode=None):
         """Pack LevelStreams into fixed-shape host arrays ``(pos, atm, cds,

@@ -1,8 +1,18 @@
-"""Order-free integer reconstruction (decode_mode='integer', format v2) —
-the plain PyTorch path.
+"""Reconstruction, both decode modes — the plain PyTorch path.
 
-Counterpart of `hsc_tpu.ops.decode.mp_decode_integer_jax` and its batch
-form.  Spec (`oracle.mp.mp_decode_integer`): ``out[t] = f32(sum_i code_i *
+Counterpart of `hsc_tpu.ops.decode`: the stream-order ordered decode
+(`mp_decode_jax` / `mp_decode_batch_jax`, decode_mode='ordered', format v1)
+and the order-free integer decode (`mp_decode_integer_jax` and its batch
+form, decode_mode='integer', format v2).
+
+Ordered spec (`oracle.mp.mp_decode`): for each event in stream order,
+``out[pos + u] = rn(out[pos + u] + rn(rn(code * scale) * bank[atom, u]))``.
+Float addition does not reassociate, so the events are added one after
+another; only the batch and the W samples of one event run in parallel.
+The hand-written CUDA kernel (`ops.decode_kernel`) is held bitwise to
+`mp_decode_batch_torch`.
+
+Integer spec (`oracle.mp.mp_decode_integer`): ``out[t] = f32(sum_i code_i *
 rep_q[atom_i][t - pos_i] mod 2^32) * amp_step`` over the events ``i <
 count``.  Integer addition is order-free, so a scatter-add gives the spec's
 integers in any order; the sums are taken in int64 and reduced mod 2^32
@@ -14,6 +24,49 @@ this function.
 from __future__ import annotations
 
 import torch
+
+
+def _live_events(positions, atoms, count, *, n: int, k: int, w: int):
+    """``[B, M]`` mask of the events a decode adds: those before `count`
+    that fit the block (an event that does not is never in a valid stream
+    and contributes nothing)."""
+    pos, atm = positions.long(), atoms.long()
+    return (
+        (torch.arange(positions.shape[1], device=positions.device)[None, :] < count[:, None].long())
+        & (pos >= 0) & (pos <= n - w) & (atm >= 0) & (atm < k)
+    )
+
+
+def mp_decode_batch_torch(
+    positions: torch.Tensor,  # [B, M] i32
+    atoms: torch.Tensor,  # [B, M] i32
+    codes: torch.Tensor,  # [B, M] i32
+    count: torch.Tensor,  # [B] i32
+    scale: torch.Tensor,  # [B] f32
+    bank: torch.Tensor,  # [K, W, C] f32
+    *,
+    n: int,
+) -> torch.Tensor:
+    """Batched ordered decode -> ``[B, n, C]`` float32, bitwise
+    `oracle.mp.mp_decode` per block.  Every product and every sum is its own
+    rounded torch op (no `addcmul`, no `alpha=`): the products are formed
+    first, then added to the output one event at a time.  A dead event adds
+    ``+0.0`` at position 0, which changes nothing: a sum that starts at
+    ``+0.0`` is never ``-0.0``."""
+    b, m = positions.shape
+    k, w, c = bank.shape
+    dev = positions.device
+    live = _live_events(positions, atoms, count, n=n, k=k, w=w)
+    c_hat = codes.to(torch.float32) * scale[:, None]  # rn(code * scale)
+    atm = torch.where(live, atoms.long(), 0)
+    prods = torch.where(live[:, :, None, None], c_hat[:, :, None, None] * bank[atm], 0.0)
+    cols = torch.where(live, positions.long(), 0)[:, :, None] + torch.arange(w, device=dev)
+    rows = torch.arange(b, device=dev)[:, None]
+    out = torch.zeros((b, n, c), dtype=torch.float32, device=dev)
+    for i in range(m):
+        at = (rows, cols[:, i])
+        out[at] = out[at] + prods[:, i]
+    return out
 
 
 def mp_decode_integer_batch_torch(
@@ -31,15 +84,10 @@ def mp_decode_integer_batch_torch(
     contribute nothing."""
     b, m = positions.shape
     k, w, c = rep_q.shape
-    pos = positions.long()
-    atm = atoms.long()
-    live = (
-        (torch.arange(m, device=positions.device)[None, :] < count[:, None].long())
-        & (pos >= 0) & (pos <= n - w) & (atm >= 0) & (atm < k)
-    )
+    live = _live_events(positions, atoms, count, n=n, k=k, w=w)
     cz = torch.where(live, codes.long(), 0)
-    pos = torch.where(live, pos, 0)
-    atm = torch.where(live, atm, 0)
+    pos = torch.where(live, positions.long(), 0)
+    atm = torch.where(live, atoms.long(), 0)
     contrib = cz[:, :, None, None] * rep_q.long()[atm]  # [B, M, W, C] exact
     idx = (pos[:, :, None] + torch.arange(w, device=positions.device))  # [B, M, W]
     acc = torch.zeros((b, n, c), dtype=torch.int64, device=positions.device)

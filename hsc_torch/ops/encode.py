@@ -1,7 +1,9 @@
 """Greedy convolutional matching pursuit — the plain PyTorch path.
 
 Counterpart of `hsc_tpu.ops.encode`: the init (correlation, energy, peak),
-the host quantizer steps, and the greedy loop given its init.  The loop here
+the level hand-off maps, the int8 level >= 1 init (the plain version of the
+sparse-init kernel, `ops.init_kernels`), the host quantizer steps, and the
+greedy loop given its init.  The loop here
 is the PLAIN version of the hand-written CUDA kernel
 (`ops.mp_kernels.mp_loop`): CPU tensors run it, the CUDA kernel is held
 bitwise to it on the card, and ``backend='torch'`` selects it explicitly.
@@ -18,6 +20,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .correlate import correlate_bank_torch
 
@@ -41,6 +44,159 @@ def encode_init_batched(xs: torch.Tensor, bank: torch.Tensor):
     scores0 = correlate_bank_torch(xs, bank)
     e0 = xs.square().sum(dim=(1, 2))
     return scores0, e0, scores0.abs().amax(dim=(1, 2))
+
+
+def _wrap_int32(acc: torch.Tensor) -> torch.Tensor:
+    """Exact int64 sums -> int32 mod 2^32 (`oracle.mp._wrap_int32`)."""
+    return ((acc + (1 << 31)) % (1 << 32) - (1 << 31)).to(torch.int32)
+
+
+def feature_map_int(
+    positions: torch.Tensor,  # [B, M] i32
+    atoms: torch.Tensor,  # [B, M] i32
+    codes: torch.Tensor,  # [B, M] i32
+    count: torch.Tensor,  # [B] i32
+    *,
+    npos: int,
+    k: int,
+) -> torch.Tensor:
+    """The level -> level+1 hand-off: int32 ``[B, npos, k]`` code sums per
+    (position, atom) cell, mod 2^32 — the counterpart of
+    `hsc_tpu.ops.encode.feature_map_int_jax` (batched) and bitwise
+    `oracle.mp.feature_map_int_from_events`.  A scatter-add in int64 (exact
+    in any order), wrapped to int32 at the touched cells only; the JAX form's
+    one-hot matmuls existed because XLA's scatter is slow on a TPU.  Events
+    past `count` or off the map contribute nothing."""
+    b, m = positions.shape
+    dev = positions.device
+    pos, atm = positions.long(), atoms.long()
+    live = (
+        (torch.arange(m, device=dev)[None, :] < count[:, None].long())
+        & (pos >= 0) & (pos < npos) & (atm >= 0) & (atm < k)
+    )
+    size = b * npos * k
+    cell = torch.where(
+        live, (torch.arange(b, device=dev)[:, None] * npos + pos) * k + atm, size
+    ).reshape(-1)  # dead events go to one spare cell past the map
+    acc = torch.zeros(size + 1, dtype=torch.int64, device=dev)
+    acc.index_add_(0, cell, codes.long().reshape(-1))
+    out = torch.zeros(size + 1, dtype=torch.int32, device=dev)
+    # duplicate cells write the same wrapped sum, so the result is defined
+    out[cell] = _wrap_int32(acc[cell])
+    return out[:size].reshape(b, npos, k)
+
+
+def feature_map(enc: EncodedBlock, *, npos: int, k: int) -> torch.Tensor:
+    """The f32 hand-off (hier_init='f32'): ``f32(cell sum) * scale`` per
+    block, bitwise `hsc_tpu.ops.encode.feature_map_jax` /
+    `oracle.mp.feature_map_from_events`."""
+    m_int = feature_map_int(enc.positions, enc.atoms, enc.codes, enc.count, npos=npos, k=k)
+    return m_int.to(torch.float32) * enc.scale[:, None, None]
+
+
+def _map_digits(m_int: torch.Tensor) -> list[torch.Tensor]:
+    """Four balanced base-256 digits of an int32 map, held in int64: the
+    integer formula of `hsc_tpu.ops.encode.encode_init_int_raw`, with its
+    int32 wraparound and the int8 cast of the last digit spelled out, so any
+    int32 cell digitizes as the JAX package and the kernel digitize it (the
+    config bounds cells to `oracle.mp.FMAP4_DIGIT_BOUND`, where nothing
+    wraps)."""
+    r = m_int.long()
+    digs = []
+    for _ in range(4):
+        d = ((r + 128) & 255) - 128
+        digs.append(d)
+        r = _wrap_int32(r - d).long() >> 8
+    return digs
+
+
+def encode_init_int_raw_torch(
+    m_int: torch.Tensor,
+    prev_scale: torch.Tensor,
+    bank_planes: torch.Tensor,
+    step,
+    *,
+    out: torch.Tensor | None = None,
+):
+    """Raw (learned-atom) rows of the int8 init — the PLAIN version of the
+    sparse-init kernel (`ops.init_kernels.sparse_init_raw`), bitwise
+    `hsc_tpu.ops.encode.encode_init_int_raw` and the raw rows of
+    `oracle.mp.int8_init_scores`.
+
+    ``m_int [B, N, C]`` int32 maps, ``prev_scale [B]`` f32, ``bank_planes
+    [n_raw, W, C, 2]`` int8, ``step`` the f32 bank step.  The four map digits
+    d_j against the two bank planes b_p give five anti-diagonal taps
+    ``T_s = sum_{j+p=s} d_j (*) b_p`` as ONE float64 conv over the digit
+    planes with a zero-stuffed ``[(s, k), (c, j), W]`` weight table.  It is
+    exact: each T_s is a sum of at most 2*W*C <= 131070 integer products of
+    size <= 2^14, below 2^53 in any order (the round only guards a backend
+    that would use an inexact algorithm).  The taps recombine in the spec's
+    fixed f32 grouping ``((T0 + 256 T1) + (65536 T2 + 2^24 T3)) + 2^32 T4``
+    times ``g = f32(prev_scale * step)``.  Blocks run in chunks so the
+    float64 buffers stay near 1 GB.  Returns ``(raw [B, n_raw, npos] f32,
+    peak_raw [B])``; `raw` is written into `out` when given."""
+    b, n, c = m_int.shape
+    n_raw, w = int(bank_planes.shape[0]), int(bank_planes.shape[1])
+    npos = n - w + 1
+    dev = m_int.device
+    f64 = torch.float64
+    planes = bank_planes.to(f64).permute(0, 2, 1, 3)  # [n_raw, C, W, 2]
+    weight = torch.zeros((5, n_raw, c, 4, w), dtype=f64, device=dev)
+    for s in range(5):
+        for j in range(4):
+            if 0 <= s - j <= 1:
+                weight[s, :, :, j, :] = planes[..., s - j]
+    weight = weight.reshape(5 * n_raw, c * 4, w)
+    if out is None:
+        out = torch.empty((b, n_raw, npos), dtype=torch.float32, device=dev)
+    g = prev_scale * torch.tensor(np.float32(step), device=dev)  # f32(prev_scale*step)
+    chunk = max(1, (1 << 27) // (4 * c * n + 5 * n_raw * npos))
+    for lo in range(0, b, chunk):
+        digs = torch.stack(_map_digits(m_int[lo : lo + chunk]), dim=-1)  # [b', N, C, 4]
+        lhs = digs.to(f64).reshape(-1, n, c * 4).transpose(1, 2)
+        taps = torch.round(F.conv1d(lhs, weight)).reshape(-1, 5, n_raw, npos)
+        t = [taps[:, s].to(torch.float32) for s in range(5)]  # RN, like int32 -> f32
+        lo_ = t[0] + 256.0 * t[1]
+        hi_ = 65536.0 * t[2] + 16777216.0 * t[3]
+        rr = (lo_ + hi_) + 4294967296.0 * t[4]
+        out[lo : lo + chunk] = rr * g[lo : lo + chunk, None, None]
+    return out, out.abs().amax(dim=(1, 2))
+
+
+def int8_assemble_batched(scores0, peak_raw, m_int, prev_scale):
+    """Epilogue of the int8 init (`hsc_tpu.ops.encode.int8_assemble_batched`),
+    in place: fills the singleton rows ``scores0[:, n_raw:]`` with the exact
+    scaled-map passthrough (the raw rows are already there) and returns
+    ``(e0 [B], peak [B])``.  Max is exact, so the combined peak equals one
+    max over all rows; e0 is an f32 reduction in the backend's order."""
+    x = m_int.to(torch.float32) * prev_scale[:, None, None]
+    e0 = x.square().sum(dim=(1, 2))
+    c = m_int.shape[2]
+    sing = scores0[:, scores0.shape[1] - c :]
+    sing.copy_(x[:, : scores0.shape[2], :].transpose(1, 2))
+    return e0, torch.maximum(peak_raw, sing.abs().amax(dim=(1, 2)))
+
+
+def encode_init_int_batched(
+    m_int: torch.Tensor,
+    prev_scale: torch.Tensor,
+    bank_planes: torch.Tensor,
+    step,
+    *,
+    raw=encode_init_int_raw_torch,
+):
+    """The int8 init for levels >= 1 (hier_init='int8'): ``m_int [B, N, C]``
+    int32, ``prev_scale [B]`` f32 -> ``(scores0 [B, n_raw + C, npos], e0,
+    peak)``, bitwise `oracle.mp.int8_init_scores` per block (e0 aside).
+    `raw` produces the raw rows into ``scores0[:, :n_raw]`` — the plain
+    dense form by default, or the sparse-init kernel wrapper — so no concat
+    copy of the score buffer is made."""
+    b, n, c = m_int.shape
+    n_raw, w = int(bank_planes.shape[0]), int(bank_planes.shape[1])
+    scores0 = torch.empty((b, n_raw + c, n - w + 1), dtype=torch.float32, device=m_int.device)
+    _, peak_raw = raw(m_int, prev_scale, bank_planes, step, out=scores0[:, :n_raw])
+    e0, peak = int8_assemble_batched(scores0, peak_raw, m_int, prev_scale)
+    return scores0, e0, peak
 
 
 def quantizer_steps(peak, amp_bits: int):

@@ -1,6 +1,7 @@
 """Batch pipelining for the three-stage encode (init -> host steps -> loop).
 
-Counterpart of `hsc_tpu.ops.pipeline.encode_batches_pipelined`.  The host
+Counterparts of `hsc_tpu.ops.pipeline.encode_batches_pipelined` (one level)
+and `encode_hierarchical_batches_pipelined` (every level).  The host
 quantizer steps (`ops.encode.quantizer_steps`) need each batch's peak vector
 on the host: one ``.cpu()`` of a ``[B]`` vector per batch.  Inits are
 dispatched up to `window` batches ahead, so a batch's peak is usually ready
@@ -65,4 +66,54 @@ def encode_batches_pipelined(
         )
         if bi < n:
             _dispatch_init()
+    return outs
+
+
+def encode_hierarchical_batches_pipelined(batches: list, coder, window: int = 4):
+    """Level-pipelined hierarchical encode: every level runs as its own batch
+    pipeline, and each batch's hand-off map to the next level is dispatched
+    as soon as its loop is.  `coder` is a
+    `models.coder.HierarchicalConvolutionalSparseCoder`; `batches` are
+    ``[B, N, C]`` host arrays.  Returns ``outs[level][batch]`` (device)
+    `EncodedBlock`s, per block bitwise the serial `coder.encode_batch`
+    (same stages, same order within each level).
+
+    The dataflow and drain policy are the JAX package's: each level keeps a
+    FIFO of pending inits (at most `window`); level 0 is fed while it has
+    room; a level's oldest peak is fetched (one ``.cpu()`` of a ``[B]``
+    vector) only once that level holds a full window — deepest such level
+    first — and otherwise the shallowest non-empty level drains."""
+    n_levels = coder.cfg.num_levels
+    outs = [[] for _ in range(n_levels)]
+    pend = [deque() for _ in range(n_levels)]
+    device = coder.device
+
+    def _push(level, xb):
+        mp = coder.coders[level].mp
+        if mp.int8_init:
+            pend[level].append(mp.init_int_batched(*xb))  # (int32 maps, scales)
+        else:
+            pend[level].append(encode_init_batched(xb, mp.bank))
+
+    def _pop(level):
+        mp = coder.coders[level].mp
+        s0, e0, peak = pend[level].popleft()
+        scale, inv = quantizer_steps(peak.cpu().numpy(), mp.settings["amp_bits"])
+        enc = mp.loop_stage(s0, e0, scale, inv)
+        outs[level].append(enc)
+        if level + 1 < n_levels:
+            _push(level + 1, coder.handoff(level, enc))
+
+    w = max(window, 1)
+    bi = 0
+    while bi < len(batches) or any(pend):
+        if bi < len(batches) and len(pend[0]) < w:
+            xb = torch.from_numpy(np.ascontiguousarray(batches[bi], dtype=np.float32))
+            _push(0, xb.to(device))
+            bi += 1
+            continue
+        lvl = next((k for k in reversed(range(n_levels)) if len(pend[k]) >= w), None)
+        if lvl is None:
+            lvl = next(k for k in range(n_levels) if pend[k])
+        _pop(lvl)
     return outs

@@ -1,12 +1,13 @@
 """One level's weights as tensors: the bank, its Gram tensor, the selection
-weights and the integer-decode table.
+weights, both decode tables and the int8 init tables.
 
 Counterpart of the arrays `hsc_tpu.models.coder.ConvolutionalMatchingPursuit`
-builds (`bank`, `gram_t`, the `weights` of `ops.encode.mp_encode_from_init`)
-and of `HierarchicalConvolutionalSparseCoder._rep_q`.  Every value is derived
-on the host from the dictionary bytes alone, so the JAX package and the port
-hold bit-identical tables (`level_params_from_numpy` carries the JAX coder's
-own arrays across; `level_params_from_mld` rebuilds them).
+builds (`bank`, `gram_t`, the `weights` of `ops.encode.mp_encode_from_init`,
+and under ``int8_init`` its `bank_planes` / `bank_step`) and of
+`HierarchicalConvolutionalSparseCoder._rep_q` / `._rep_banks`.  Every value is
+derived on the host from the dictionary bytes alone, so the JAX package and
+the port hold bit-identical tables (`level_params_from_numpy` carries the JAX
+coder's own arrays across; `level_params_from_mld` rebuilds them).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import numpy as np
 import torch
 
 from hsc_tpu.dictionary import MultilevelDictionary
-from hsc_tpu.oracle.mp import rep_quantize
+from hsc_tpu.oracle.mp import balanced_digits, bank_quantize_int16, rep_quantize
 
 from .device import resolve_device
 
@@ -29,6 +30,20 @@ class LevelParams:
     weights: torch.Tensor  # [K] f32 selection weights (singleton weighting)
     rep_q: torch.Tensor | None  # [K, W, 1] i32 integer-decode table
     rep_step: np.float32 | None  # its f32 quantizer step (host scalar)
+    # int8 level >= 1 init (hier_init='int8'): the balanced int8 digit planes
+    # of the RAW sub-bank's int16 quantization, and its f32 step
+    bank_planes: torch.Tensor | None = None  # [n_raw, W, C, 2] i8
+    bank_step: np.float32 | None = None
+    # ordered-decode table: the signal-space representations
+    rep_bank: torch.Tensor | None = None  # [K, scales[level], 1] f32
+
+
+def int8_bank_tables(bank_raw) -> tuple[np.ndarray, np.float32]:
+    """``(bank_planes [n_raw, W, C, 2] int8, bank_step f32)`` of a raw
+    sub-bank, as `hsc_tpu.models.coder.ConvolutionalMatchingPursuit` derives
+    them (`oracle.mp.bank_quantize_int16`, then two balanced digits)."""
+    bank_q, step = bank_quantize_int16(np.asarray(bank_raw, dtype=np.float32))
+    return balanced_digits(bank_q, 2).astype(np.int8), np.float32(step)
 
 
 def level_params_from_numpy(
@@ -37,29 +52,38 @@ def level_params_from_numpy(
     *,
     rep_q=None,
     rep_step=None,
+    bank_planes=None,
+    bank_step=None,
+    rep_bank=None,
     n_raw: int,
     singleton_weight: float,
     device,
 ) -> LevelParams:
     """Tensors from host arrays: ``bank [K, W, C]``, the TRANSPOSED Gram
     ``gram_t [K, K, 2W-1]`` (as `np.asarray(jax_coder.mp.gram_t)`), and
-    optionally the integer-decode table with its step."""
+    optionally the integer-decode table with its step, the int8 init planes
+    with their step (``jax_coder.coders[k].mp.bank_planes`` / ``.bank_step``)
+    and the ordered-decode table (``jax_coder._rep_banks[k]``)."""
     dev = resolve_device(device)
     bank = np.asarray(bank, dtype=np.float32)
     k = bank.shape[0]
     weights = np.where(
         np.arange(k) < int(n_raw), np.float32(1), np.float32(singleton_weight)
     ).astype(np.float32)
-    # torch.tensor copies: the tables never alias the caller's arrays
+
+    def tensor(a, dtype):
+        # torch.tensor copies: the tables never alias the caller's arrays
+        return None if a is None else torch.tensor(np.asarray(a, dtype=dtype), device=dev)
+
     return LevelParams(
-        bank=torch.tensor(bank, device=dev),
-        gram_t=torch.tensor(np.asarray(gram_t, dtype=np.float32), device=dev),
-        weights=torch.tensor(weights, device=dev),
-        rep_q=(
-            None if rep_q is None
-            else torch.tensor(np.asarray(rep_q, dtype=np.int32), device=dev)
-        ),
+        bank=tensor(bank, np.float32),
+        gram_t=tensor(gram_t, np.float32),
+        weights=tensor(weights, np.float32),
+        rep_q=tensor(rep_q, np.int32),
         rep_step=None if rep_step is None else np.float32(rep_step),
+        bank_planes=tensor(bank_planes, np.int8),
+        bank_step=None if bank_step is None else np.float32(bank_step),
+        rep_bank=tensor(rep_bank, np.float32),
     )
 
 
@@ -67,17 +91,23 @@ def level_params_from_mld(
     mld: MultilevelDictionary, level: int, device, rep_bits: int | None = None
 ) -> LevelParams:
     """The same tables built from a `MultilevelDictionary` (``rep_bits``
-    defaults to the dictionary config's)."""
+    defaults to the dictionary config's).  The int8 init tables exist at
+    levels >= 1 of a ``hier_init='int8'`` dictionary."""
     cfg = mld.config
     gram_t = np.ascontiguousarray(mld.gram(level).transpose(1, 0, 2))
-    rep_q, step = rep_quantize(
-        mld.representations(level)[:, :, None], rep_bits or cfg.rep_bits
-    )
+    reps = mld.representations(level)[:, :, None]
+    rep_q, step = rep_quantize(reps, rep_bits or cfg.rep_bits)
+    planes = bank_step = None
+    if level > 0 and cfg.hier_init == "int8":
+        planes, bank_step = int8_bank_tables(mld.augmented(level)[: cfg.counts[level]])
     return level_params_from_numpy(
         mld.augmented(level),
         gram_t,
         rep_q=rep_q,
         rep_step=step,
+        bank_planes=planes,
+        bank_step=bank_step,
+        rep_bank=reps,
         n_raw=cfg.counts[level],
         singleton_weight=cfg.singleton_weight if level > 0 else 1.0,
         device=device,

@@ -7,10 +7,10 @@ from `hsc_tpu.runtime` (its module imports JAX), because the container bytes
 depend on it: a container written here is byte-identical to the JAX
 package's for the same streams.
 
-This slice covers single-level dictionaries, top-only payloads and
-decode_mode='integer'.  The journal, constant-bitrate mode, the distributed
-representation, meshes, the seek index and random-access decode raise
-`NotImplementedError` naming the ROADMAP item that brings them.
+It covers every hierarchy depth, both decode modes, and the top-only and
+distributed (`oracle.mp.to_distributed`) container forms.  The journal,
+constant-bitrate mode, meshes, the seek index and random-access decode
+raise `NotImplementedError` naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -24,10 +24,10 @@ import numpy as np
 from hsc_tpu.config import CodecConfig
 from hsc_tpu.dictionary import MultilevelDictionary
 from hsc_tpu.io.bitstream import MAGIC, VERSION, iter_blocks, pack_stream, peek_corpus_header
-from hsc_tpu.oracle.mp import LevelStream
+from hsc_tpu.oracle.mp import LevelStream, to_distributed
 
-from .models.coder import HierarchicalConvolutionalSparseCoder, to_host
-from .ops.pipeline import encode_batches_pipelined
+from .models.coder import HierarchicalConvolutionalSparseCoder, level_streams, to_host
+from .ops.pipeline import encode_batches_pipelined, encode_hierarchical_batches_pipelined
 
 
 def _not_ported(what: str, item: str):
@@ -70,21 +70,26 @@ class CorpusEncoder:
         ):
             if value is not None:
                 raise _not_ported(what, item)
-        if distributed:
-            raise _not_ported("distributed=True", "Hierarchy")
         self.mld = mld
         self.cfg: CodecConfig = mld.config
         self.coder = HierarchicalConvolutionalSparseCoder(mld, backend=backend, device=device)
         self.device = self.coder.device
         self.batch_size = int(batch_size)
+        # emit the distributed representation (each event stored at the
+        # level where its atom is raw) instead of the top-level-only stream
+        self.distributed = bool(distributed)
 
     # -- encode -------------------------------------------------------------
 
     def _pack_block(self, top_stream) -> bytes:
-        """Pack one block: top form, no rate control
-        (`hsc_tpu.runtime.CorpusEncoder._pack_block` with target_bps=None
-        and distributed=False)."""
+        """Pack one block, no rate control
+        (`hsc_tpu.runtime.CorpusEncoder._pack_block_raw`)."""
         top = self.cfg.num_levels - 1
+        if self.distributed and self.cfg.num_levels > 1:
+            parts = to_distributed(self.cfg, top_stream)
+            return struct.pack("<B", len(parts)) + b"".join(
+                pack_stream(self.cfg, level, s) for level, s in parts
+            )
         return struct.pack("<B", 1) + pack_stream(self.cfg, top, top_stream)
 
     def _validate_blocks(self, blocks) -> np.ndarray:
@@ -95,21 +100,6 @@ class CorpusEncoder:
             )
         return blocks
 
-    def _emit_batched(self, enc, ids: list[int], payloads: dict[int, bytes]) -> None:
-        """Trim a host-side batched EncodedBlock to per-block streams and
-        pack them into `payloads` under their block ids."""
-        for j, bid in enumerate(ids):
-            n = int(enc.count[j])
-            stream = LevelStream(
-                positions=np.asarray(enc.positions[j][:n], np.int32),
-                atoms=np.asarray(enc.atoms[j][:n], np.int32),
-                codes=np.asarray(enc.codes[j][:n], np.int32),
-                scale=np.float32(enc.scale[j]),
-                energy0=float(enc.energy0[j]),
-                energy_res=float(enc.energy_res[j]),
-            )
-            payloads[bid] = self._pack_block(stream)
-
     def encode(self, blocks: np.ndarray, index: bool = False) -> bytes:
         """Encode ``[B, block_size]`` into the container format."""
         if index:
@@ -117,22 +107,29 @@ class CorpusEncoder:
         blocks = self._validate_blocks(blocks)
         nb = blocks.shape[0]
         payloads: dict[int, bytes] = {}
-        self._encode_single_level_pipelined(blocks, list(range(nb)), payloads)
+        self._compute_payloads(blocks, list(range(nb)), payloads)
         return _join_container(self.cfg, (payloads[b] for b in range(nb)), nb)
 
-    def _encode_single_level_pipelined(self, blocks, todo, payloads) -> None:
-        mp = self.coder.coders[0].mp
+    def _compute_payloads(self, blocks, todo, payloads) -> None:
+        """Encode `todo` (indexes into `blocks`) into `payloads`: one level
+        through the pipelined three-stage path, several through the
+        level-pipelined path; batches are uploaded per pipeline window."""
         batches = []
         id_groups = []
         for start in range(0, len(todo), self.batch_size):
             ids = todo[start : start + self.batch_size]
-            batches.append(blocks[ids][:, :, None])  # host; uploaded per window
+            batches.append(blocks[ids][:, :, None])
             id_groups.append(ids)
-        encs = encode_batches_pipelined(
-            batches, mp.params, device=self.device, backend=mp.backend, **mp.settings
-        )
+        if self.cfg.num_levels == 1:
+            mp = self.coder.coders[0].mp
+            encs = encode_batches_pipelined(
+                batches, mp.params, device=self.device, backend=mp.backend, **mp.settings
+            )
+        else:
+            encs = encode_hierarchical_batches_pipelined(batches, self.coder)[-1]
         for ids, enc in zip(id_groups, encs):
-            self._emit_batched(to_host(enc), ids, payloads)
+            for bid, stream in zip(ids, level_streams(to_host(enc))):
+                payloads[bid] = self._pack_block(stream)
 
     # -- decode -------------------------------------------------------------
 
@@ -147,27 +144,79 @@ class CorpusEncoder:
                 )
 
     def _decode_chunks(self, cfg, blocks, mode, rep_bits):
-        """Yield decoded ``[chunk, block_size]`` arrays in container order:
-        one batched device decode per chunk of `batch_size` top-only blocks,
-        up to 4 chunks in flight while the host unpacks the next."""
+        """Yield decoded ``[chunk, block_size]`` arrays in container order,
+        one chunk of `batch_size` blocks at a time, up to 4 device decodes
+        in flight while the host unpacks the next chunk
+        (`hsc_tpu.runtime.CorpusEncoder._decode_chunks`).  A chunk of
+        top-only blocks is one batched decode; a distributed or mixed chunk
+        (at most one stream per level per block, ascending) is one batched
+        decode per level, summed on the host per block in level order; any
+        other shape decodes block by block, streams in container order."""
         top = cfg.num_levels - 1
         it = iter(blocks)
+        # pending: (chunk index, block ids or None for the whole chunk, rows)
         pending: deque = deque()
+        outs: dict[int, np.ndarray] = {}
+        units_left: dict[int, int] = {}
+        next_yield = 0
+
+        def decode(streams, level):
+            return self.coder.reconstruct_batch_device(
+                streams, level=level, mode=mode, rep_bits=rep_bits
+            )
+
+        def drain_one():
+            ci, ids, dev = pending.popleft()
+            rows = dev.cpu().numpy()[:, :, 0]
+            if ids is None:
+                outs[ci] = rows
+            else:
+                for j, b in enumerate(ids):
+                    outs[ci][b] += rows[j]
+            units_left[ci] -= 1
+
+        def submit(ci, ids, dev):
+            pending.append((ci, ids, dev))
+            if len(pending) >= 4:
+                drain_one()
+
+        ci = 0
         while True:
             chunk = list(islice(it, max(self.batch_size, 1)))
             if not chunk:
                 break
-            if not all(len(s) == 1 and s[0][0] == top for s in chunk):
-                raise _not_ported("decoding distributed/mixed containers", "Runtime and CLI")
-            pending.append(
-                self.coder.reconstruct_batch_device(
-                    [s[0][1] for s in chunk], level=top, mode=mode, rep_bits=rep_bits
-                )
-            )
-            if len(pending) >= 4:
-                yield pending.popleft().cpu().numpy()[:, :, 0]
+            if all(len(s) == 1 and s[0][0] == top for s in chunk):
+                units_left[ci] = 1
+                submit(ci, None, decode([s[0][1] for s in chunk], top))
+            elif all(
+                [lv for lv, _ in streams] == sorted({lv for lv, _ in streams})
+                for streams in chunk
+            ):
+                by_level: dict[int, list[tuple[int, LevelStream]]] = {}
+                for b, streams in enumerate(chunk):
+                    for level, stream in streams:
+                        by_level.setdefault(level, []).append((b, stream))
+                outs[ci] = np.zeros((len(chunk), cfg.block_size), np.float32)
+                units_left[ci] = len(by_level)
+                for level in sorted(by_level):
+                    ids = [b for b, _ in by_level[level]]
+                    submit(ci, ids, decode([s for _, s in by_level[level]], level))
+            else:
+                out = np.zeros((len(chunk), cfg.block_size), np.float32)
+                for b, streams in enumerate(chunk):
+                    for level, stream in streams:
+                        out[b] += decode([stream], level).cpu().numpy()[0, :, 0]
+                outs[ci] = out
+                units_left[ci] = 0
+            ci += 1
+            while next_yield < ci and units_left[next_yield] == 0:
+                yield outs.pop(next_yield)
+                next_yield += 1
         while pending:
-            yield pending.popleft().cpu().numpy()[:, :, 0]
+            drain_one()
+            while next_yield < ci and units_left[next_yield] == 0:
+                yield outs.pop(next_yield)
+                next_yield += 1
 
     def decode_stream(self, blob: bytes, indices=None):
         """Yield decoded blocks ``[block_size]`` in container order, bounded

@@ -1,6 +1,7 @@
 """Guards of the port: it never imports JAX, never drifts to the CPU, never
-falls back from a kernel, and refuses what this slice does not run."""
+falls back from a kernel, and refuses what it does not run yet."""
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -13,16 +14,16 @@ from hsc_tpu import MultilevelDictionary, SignalGenerator, make_test_config
 
 import hsc_torch._build
 from hsc_torch.device import resolve_device
-from hsc_torch.models import ConvolutionalMatchingPursuit
-from hsc_torch.ops import decode_integer_kernel, mp_kernels
+from hsc_torch.ops import decode_integer_kernel, decode_kernel, init_kernels, mp_kernels
 from hsc_torch.runtime import CorpusEncoder
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_port_never_imports_jax():
-    """A fresh interpreter imports the port and runs a tiny CPU encode and
-    decode without JAX ever entering sys.modules."""
+    """A fresh interpreter imports the port and runs tiny CPU encodes and
+    decodes (one level; two levels, ordered, distributed) without JAX ever
+    entering sys.modules."""
     code = textwrap.dedent(
         """
         import sys
@@ -34,6 +35,11 @@ def test_port_never_imports_jax():
         codec = CorpusEncoder(mld, device="cpu")
         rows = codec.decode(codec.encode(xs))
         assert rows.shape == (2, 256)
+        cfg2 = make_test_config(block_size=256, num_coefs=(16, 8), counts=(8, 4), scales=(8, 24),
+                                decode_mode="ordered")
+        codec2 = CorpusEncoder(MultilevelDictionary.generate(cfg2, seed=1), device="cpu",
+                               distributed=True)
+        assert codec2.decode(codec2.encode(xs)).shape == (2, 256)
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
         print("ok")
         """
@@ -68,24 +74,33 @@ def test_missing_nvcc_raises(monkeypatch):
         hsc_torch._build._nvcc()
 
 
-def test_cpu_path_launches_no_kernel(mld1):
-    """CPU tensors take the plain versions: both launch counters stay put
-    through a whole encode and decode."""
-    before = (mp_kernels.LAUNCHES, decode_integer_kernel.LAUNCHES)
-    xs = SignalGenerator(mld1, rates=4e-3).generate_signals(2, mld1.config.block_size, seed=71)
-    codec = CorpusEncoder(mld1, device="cpu", backend="auto")
-    codec.decode(codec.encode(xs))
-    assert (mp_kernels.LAUNCHES, decode_integer_kernel.LAUNCHES) == before
+def _launches():
+    return (mp_kernels.LAUNCHES, decode_integer_kernel.LAUNCHES, init_kernels.LAUNCHES,
+            decode_kernel.LAUNCHES)
+
+
+def test_cpu_path_launches_no_kernel(mld1, mld2):
+    """CPU tensors take the plain versions: the four launch counters stay
+    put through single-level and 2-level (int8 init) encodes and decodes in
+    both modes."""
+    before = _launches()
+    for mld in (mld1, mld2):
+        xs = SignalGenerator(mld, rates=4e-3).generate_signals(2, mld.config.block_size, seed=71)
+        for mode in ("integer", "ordered"):
+            cfg = dataclasses.replace(mld.config, decode_mode=mode)
+            codec = CorpusEncoder(MultilevelDictionary.generate(cfg, seed=7), device="cpu", backend="auto")
+            codec.decode(codec.encode(xs))
+    assert mld2.config.hier_init == "int8"
+    assert _launches() == before
     if not torch.cuda.is_available():
-        assert before == (0, 0)
+        assert before == (0, 0, 0, 0)
 
 
 @pytest.mark.parametrize(
     "what",
-    ["journal_dir", "target_bps", "distributed", "mesh", "index", "indices",
-     "two_levels", "ordered_decode", "int8_init"],
+    ["journal_dir", "target_bps", "mesh", "index", "indices"],
 )
-def test_unported_options_raise(mld1, mld2, tmp_path, what):
+def test_unported_options_raise(mld1, tmp_path, what):
     cfg = mld1.config
     xs = SignalGenerator(mld1, rates=4e-3).generate_signals(1, cfg.block_size, seed=73)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -93,23 +108,10 @@ def test_unported_options_raise(mld1, mld2, tmp_path, what):
             CorpusEncoder(mld1, device="cpu", journal_dir=str(tmp_path))
         elif what == "target_bps":
             CorpusEncoder(mld1, device="cpu", target_bps=2.0)
-        elif what == "distributed":
-            CorpusEncoder(mld1, device="cpu", distributed=True)
         elif what == "mesh":
             CorpusEncoder(mld1, device="cpu", mesh=object())
         elif what == "index":
             CorpusEncoder(mld1, device="cpu").encode(xs, index=True)
-        elif what == "indices":
+        else:
             codec = CorpusEncoder(mld1, device="cpu")
             next(codec.decode_stream(codec.encode(xs), indices=[0]))
-        elif what == "two_levels":
-            CorpusEncoder(mld2, device="cpu")
-        elif what == "ordered_decode":
-            ordered = make_test_config(decode_mode="ordered")
-            mld = MultilevelDictionary.generate(ordered, seed=7)
-            codec = CorpusEncoder(mld, device="cpu")
-            codec.decode(codec.encode(xs))
-        else:
-            ConvolutionalMatchingPursuit(
-                mld1.augmented(0), mld1.gram(0), num_coefs=8, int8_init=True, device="cpu"
-            )

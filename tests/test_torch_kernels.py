@@ -17,11 +17,26 @@ import torch
 
 from hsc_tpu import MultilevelDictionary, SignalGenerator, make_test_config
 from hsc_tpu.dictionary import bank_gram
-from hsc_tpu.oracle.mp import LevelStream, mp_decode_integer, mp_encode
+from hsc_tpu.oracle.mp import (
+    LevelStream,
+    balanced_digits,
+    bank_quantize_int16,
+    int8_init_scores,
+    mp_decode,
+    mp_decode_integer,
+    mp_encode,
+)
 
-from hsc_torch.ops import decode_integer_kernel, mp_kernels
-from hsc_torch.ops.decode import mp_decode_integer_batch_torch
-from hsc_torch.ops.encode import encode_init_batched, mp_encode_from_init_torch, quantizer_steps
+from hsc_torch.ops import decode_integer_kernel, decode_kernel, init_kernels, mp_kernels
+from hsc_torch.ops.decode import mp_decode_batch_torch, mp_decode_integer_batch_torch
+from hsc_torch.ops.encode import (
+    encode_init_batched,
+    encode_init_int_batched,
+    encode_init_int_raw_torch,
+    feature_map_int,
+    mp_encode_from_init_torch,
+    quantizer_steps,
+)
 from hsc_torch.params import level_params_from_mld, level_params_from_numpy
 from hsc_torch.runtime import CorpusEncoder
 
@@ -197,6 +212,89 @@ def test_corpus_encoder_kernels_equal_plain(device):
     # on the CPU (plain versions)
     n = 3 if device.type == "cuda" else 0
     assert _launches() == (before[0] + n, before[1] + n)
+    plain = CorpusEncoder(mld, device=device, backend="torch", batch_size=4)
+    assert plain.encode(xs) == blob
+    assert plain.decode(blob).tobytes() == rows.tobytes()
+
+
+@pytest.mark.parametrize("seed", range(12))
+def test_sparse_init_kernel_random_geometry(device, seed):
+    """Random raw-atom count, width (up to 129), channels, map length and
+    event density; duplicate cells, cells near the four-digit bound and an
+    all-zero block: the kernel's raw rows and peak bitwise the plain dense
+    version — also when written into a score buffer — and the scores
+    bitwise `oracle.int8_init_scores` on one block."""
+    rng = np.random.default_rng(3000 + seed)
+    n_raw, w, c = int(rng.integers(1, 34)), int(rng.integers(1, 130)), int(rng.integers(1, 17))
+    n, b = int(rng.integers(w, 1200)), 3
+    m = int(rng.integers(1, max(2, n * c // int(rng.choice([4, 40, 400])))))
+    pos = rng.integers(0, n, size=(b, m)).astype(np.int32)
+    atm = rng.integers(0, c, size=(b, m)).astype(np.int32)
+    cds = rng.integers(-32767, 32768, size=(b, m)).astype(np.int32)
+    pos[:, 1:4], atm[:, 1:4] = pos[:, :1], atm[:, :1]  # duplicate cells
+    cnt = np.array([m, rng.integers(0, m + 1), 0], np.int32)  # block 2 is all zero
+    m_int = feature_map_int(*(torch.from_numpy(a).to(device) for a in (pos, atm, cds, cnt)), npos=n, k=c)
+    bound = 2139062143
+    for _ in range(3):
+        m_int[0, int(rng.integers(0, n)), int(rng.integers(0, c))] = int(rng.choice([bound, -bound, bound - 255]))
+    bq, step = bank_quantize_int16(rng.standard_normal((n_raw, w, c)).astype(np.float32))
+    planes = torch.from_numpy(balanced_digits(bq, 2).astype(np.int8)).to(device)
+    prev_scale = torch.from_numpy(rng.uniform(1e-6, 2.0, size=b).astype(np.float32)).to(device)
+
+    before = init_kernels.LAUNCHES
+    raw, peak = init_kernels.sparse_init_raw(m_int, prev_scale, planes, step)
+    raw_p, peak_p = encode_init_int_raw_torch(m_int, prev_scale, planes, step)
+    assert torch.equal(raw, raw_p) and torch.equal(peak, peak_p)
+    s0, e0, pk = encode_init_int_batched(m_int, prev_scale, planes, step, raw=init_kernels.sparse_init_raw)
+    s0_p, e0_p, pk_p = encode_init_int_batched(m_int, prev_scale, planes, step)
+    assert torch.equal(s0, s0_p) and torch.equal(e0, e0_p) and torch.equal(pk, pk_p)
+    assert init_kernels.LAUNCHES == before + (2 if device.type == "cuda" else 0)
+    assert float(peak[2]) == 0.0 and not s0[2].any()
+    want = int8_init_scores(m_int[0].cpu().numpy(), bq, step, prev_scale[0].cpu().numpy())
+    assert s0[0].cpu().numpy().tobytes() == want.tobytes()
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_ordered_decode_kernel_random_events(device, seed):
+    """Random bank shape (widths past a CTA's 256 threads included), block
+    length and events piled onto few positions so adds overlap: the kernel
+    bitwise the plain version and `oracle.mp.mp_decode`."""
+    rng = np.random.default_rng(4000 + seed)
+    k, w = int(rng.integers(1, 97)), int(rng.integers(1, 300))
+    n, m, b = int(rng.integers(w, 20000)), int(rng.integers(1, 600)), 4
+    bank = rng.standard_normal((k, w, 1)).astype(np.float32)
+    hot = rng.integers(0, n - w + 1, size=int(rng.integers(1, 40)))
+    pos = rng.choice(hot, size=(b, m)).astype(np.int32)
+    atm = rng.integers(0, k, size=(b, m)).astype(np.int32)
+    cds = rng.integers(-32767, 32768, size=(b, m)).astype(np.int32)
+    cnt = rng.integers(0, m + 1, size=b).astype(np.int32)
+    scale = rng.uniform(1e-7, 1e-2, size=b).astype(np.float32)
+    args = [torch.from_numpy(a).to(device) for a in (pos, atm, cds, cnt, scale, bank)]
+    got = decode_kernel.mp_decode_batch(*args, n=n)
+    assert torch.equal(got, mp_decode_batch_torch(*args, n=n))
+    for j in range(b):
+        st = LevelStream(pos[j, :cnt[j]], atm[j, :cnt[j]], cds[j, :cnt[j]], scale[j], 0.0, 0.0)
+        assert got[j].cpu().numpy().tobytes() == mp_decode(st, bank, n).tobytes()
+
+
+@pytest.mark.parametrize("mode", ["integer", "ordered"])
+def test_hier_corpus_encoder_kernels_equal_plain(device, mode):
+    """The 2-level codec (int8 level-1 init) with backend 'cuda' gives the
+    container and rows of backend 'torch'; on the card each batch launches
+    the greedy loop once per level and the sparse init once, and each
+    decoded chunk launches its mode's decode kernel once."""
+    cfg = make_test_config(counts=(12, 8), scales=(16, 48), num_coefs=(96, 48), block_size=1024,
+                           num_select=4, decode_mode=mode)
+    mld = MultilevelDictionary.generate(cfg, seed=11)
+    xs = SignalGenerator(mld, rates=4e-3).generate_signals(9, cfg.block_size, seed=17)
+    counters = (mp_kernels, init_kernels, decode_integer_kernel, decode_kernel)
+    before = [c.LAUNCHES for c in counters]
+    codec = CorpusEncoder(mld, device=device, batch_size=4)
+    blob = codec.encode(xs)
+    rows = codec.decode(blob)
+    on = device.type == "cuda"
+    dec = (3, 0) if mode == "integer" else (0, 3)
+    assert [c.LAUNCHES - x for c, x in zip(counters, before)] == [6 * on, 3 * on, dec[0] * on, dec[1] * on]
     plain = CorpusEncoder(mld, device=device, backend="torch", batch_size=4)
     assert plain.encode(xs) == blob
     assert plain.decode(blob).tobytes() == rows.tobytes()
