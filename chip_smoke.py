@@ -13,7 +13,11 @@ of width 32, 512 coefficients, num_select=8, integer decode) it:
      the greedy-loop kernel bitwise against its plain PyTorch version
      (num_select 8, 1 and 3, plus an SNR stop and an all-zero block) and two
      blocks per setting against the NumPy oracle with the port's init
-     injected;
+     injected; then the edge cases of its one-pass sweep, each bitwise the
+     plain loop and the oracle: the 2W-1 guard, the budget and the SNR stop
+     reached mid-sweep, num_select 1 to 48 (past the 32 lanes that take the
+     candidates) at K=80 with npos not a multiple of 128, the flagship
+     hierarchy's level-1 geometry (K=96, W=65) and 12 random geometries;
   4. holds the integer-decode kernel bitwise against its plain version and
      the oracle, including a batch whose sums wrap past 2^31;
   5. encodes 128 blocks with CorpusEncoder(device='cuda') twice (identical
@@ -22,7 +26,9 @@ of width 32, 512 coefficients, num_select=8, integer decode) it:
   6. times both kernels against their plain versions and the codec end to
      end on both backends (in turns, median and range), times the init, and
      profiles one encode and one decode (device-busy share and time by
-     kernel; the traces go to build/chip_smoke/).
+     kernel; the traces go to build/chip_smoke/).  The loop kernel updates
+     its scores in place, so each timed launch gets a fresh copy made
+     outside its CUDA events.
 
 At the flagship hierarchy of `bench.py:257-262` (levels of 64 and 32 raw
 atoms, scales 32 and 96, 512 and 192 coefficients, num_select=8, the int8
@@ -40,14 +46,19 @@ level-1 init; dictionary seed 9, signals seed 5) it then:
      the oracle's int8 init on 2 blocks, decodes are bitwise the oracle's,
      distributed rows are the per-level oracle sums, backend='torch' gives
      the same containers and rows, and all four kernels were launched;
- 10. times both new kernels against their plain versions and the
-     hierarchical codec on both backends (in turns), and profiles one
-     hierarchical encode.
+ 10. times the sparse-init, ordered-decode and level-1 greedy-loop kernels
+     against their plain versions and the hierarchical codec on both
+     backends (in turns), and profiles one hierarchical encode.
 
-Every phase is fatal on failure.  The NumPy spec it checks against
-(`hsc_tpu.oracle`, `hsc_tpu.io`) is shared with the JAX package and imports
-no JAX; the script fails if JAX was imported.  The last line is one JSON
-object with the device.
+Every phase is fatal on failure.  The NumPy spec it checks against is the
+port's own copy (`hsc_torch.oracle`, `hsc_torch.io`); the script fails if
+JAX or any module of the JAX package `hsc_tpu` was imported.  Before the
+last line it prints one JSON object with every kernel (launches on the
+counted hierarchical path, error against the plain version, its time, the
+plain version's, the bound computed from this run's inputs and, where one
+PyTorch call computes the same function, that call's time), then the
+card's name and power limit.  The last line is one JSON object with the
+device.
 """
 
 from __future__ import annotations
@@ -69,6 +80,11 @@ HIER = dict(
 )
 N_BLOCKS = 128
 BATCH = 64
+# one H100 SXM at its 700 W limit (NVIDIA's data sheet): device memory rate
+# and the float32 rate outside the tensor cores, which the kernels' integer
+# and float scalar work runs at
+HBM_BYTES_PER_S = 3.35e12
+SCALAR_OPS_PER_S = 67e12
 
 
 class SmokeFailure(RuntimeError):
@@ -133,6 +149,43 @@ def device_profile(fn, trace_path: str) -> dict:
     return {"wall_ms": wall_ms, "busy_ms": busy / 1e3, "by_name": by_name}
 
 
+def fresh_ms(make, fn, reps: int) -> float:
+    """Mean device milliseconds of ``fn(make())`` over `reps` calls, each
+    timed alone with CUDA events, so that making its input (a copy of the
+    scores the loop kernel updates in place) stays out of the time."""
+    import torch
+
+    total = 0.0
+    for _ in range(reps):
+        x = make()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(x)
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def card_bound(nbytes: float, nops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the scalar rate."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / SCALAR_OPS_PER_S * 1e3
+    if by_bytes >= by_ops:
+        return {"bound_ms": by_bytes, "bound_by": "bytes"}
+    return {"bound_ms": by_ops, "bound_by": "operations"}
+
+
+def loop_bound(s0, params, enc) -> dict:
+    """Greedy loop: the scores, steps, Gram and weights read once and the
+    events written once; per accepted event K x (2W-1) updates of five
+    operations each (multiply, subtract, abs, weight, max)."""
+    b, k, _ = s0.shape
+    lag = int(params.gram_t.shape[2])
+    nbytes = 4 * (s0.numel() + 3 * b + params.gram_t.numel() + k + 3 * enc.positions.numel() + 2 * b)
+    return card_bound(nbytes, int(enc.count.sum()) * k * lag * 5)
+
+
 def turns(kernel_fn, plain_fn, rounds: int):
     """Alternate plain and kernel (P K K P ...) and collect both results."""
     k, p = [], []
@@ -186,6 +239,120 @@ def max_abs_diff(a, b) -> float:
     return max(float((x.double() - y.double()).abs().max()) if x.numel() else 0.0 for x, y in zip(a, b))
 
 
+def unit_bank(rng, k: int, w: int) -> np.ndarray:
+    bank = rng.standard_normal((k, w, 1)).astype(np.float32)
+    return bank / np.linalg.norm(bank, axis=(1, 2), keepdims=True)
+
+
+def loop_case(dev, bank, n_raw, sw, s0, e0, *, amp_bits=16, oracle_blocks=None, **kw):
+    """The loop kernel (on a copy of `s0`) bitwise the plain loop, and the
+    blocks `oracle_blocks` (default: all) bitwise the oracle with `s0`
+    injected.  Returns the kernel's result on the host and its max |diff|
+    to the plain loop."""
+    import torch
+
+    from hsc_torch.dictionary import bank_gram
+    from hsc_torch.ops import mp_kernels
+    from hsc_torch.ops.encode import mp_encode_from_init_torch, quantizer_steps
+    from hsc_torch.oracle.mp import mp_encode
+    from hsc_torch.params import level_params_from_numpy
+
+    gram = bank_gram(bank)
+    params = level_params_from_numpy(bank, np.ascontiguousarray(gram.transpose(1, 0, 2)), n_raw=n_raw,
+                                     singleton_weight=sw, device=dev)
+    s0 = torch.as_tensor(s0, dtype=torch.float32).to(dev)
+    e0 = torch.as_tensor(e0, dtype=torch.float32).to(dev)
+    scale, inv = quantizer_steps(s0.abs().amax(dim=(1, 2)).cpu().numpy(), amp_bits)
+    init = (s0, e0, torch.from_numpy(scale).to(dev), torch.from_numpy(inv).to(dev))
+    kw = dict(kw, amp_bits=amp_bits)
+    got = mp_kernels.mp_loop(s0.clone(), *init[1:], params, **kw)
+    ref = mp_encode_from_init_torch(*init, params, **kw)
+    torch.cuda.synchronize()
+    what = f"K={bank.shape[0]} W={bank.shape[1]} npos={s0.shape[2]} {kw}"
+    check(fields_equal(got, ref), f"mp_encode kernel != plain at {what}")
+    host = [a.cpu().numpy() for a in got]
+    for b in range(s0.shape[0]) if oracle_blocks is None else oracle_blocks:
+        o = mp_encode(np.zeros((s0.shape[2] + bank.shape[1] - 1, 1), np.float32), bank, gram,
+                      scores0=s0[b].cpu().numpy(), energy0=float(e0[b]), singleton_weight=sw, n_raw=n_raw, **kw)
+        n = int(host[3][b])
+        check(n == o.positions.shape[0], f"oracle count {o.positions.shape[0]} != kernel {n} at {what}, block {b}")
+        for a, want in zip(host[:3], (o.positions, o.atoms, o.codes)):
+            check(np.array_equal(a[b, :n], want), f"oracle events differ at {what}, block {b}")
+        check(host[6][b] == np.float32(o.energy_res), f"oracle energy_res differs at {what}, block {b}")
+    return host, max_abs_diff(got, ref)
+
+
+def sweep_edge_cases(dev) -> float:
+    """Phase 3's edge cases of the one-pass sweep (see the module
+    docstring); returns the largest kernel-vs-plain |diff| (0 when bitwise)."""
+    import torch
+
+    from hsc_torch.ops.encode import encode_init_batched
+
+    rng = np.random.default_rng(21)
+    err = 0.0
+    # synthetic scores: noise and a few peaks on atom 1, one per segment of
+    # 128 positions (npos 984 at S=8)
+    k, w, npos = 6, 16, 8 * 128 - 40
+    bank = unit_bank(rng, k, w)
+
+    def peaked(peaks, noise=0.01):
+        s0 = (rng.standard_normal((1, k, npos)) * noise).astype(np.float32)
+        for t, v in peaks.items():
+            s0[0, 1, t] = v
+        return s0
+
+    # segment 0's peak (125) and segment 1's (128) lie 3 apart, < 2W-1 = 31
+    host, e = loop_case(dev, bank, k, 1.0, peaked({125: 2.0, 128: 1.9, 300: 1.5, 700: 1.4}), [50.0],
+                        num_coefs=40, num_select=8)
+    check(list(host[0][0, :2]) == [125, 300], f"the guard did not reject position 128: {host[0][0, :4]}")
+    err = max(err, e)
+    host, e = loop_case(dev, bank, k, 1.0, peaked({64 + 128 * j: 1.0 + 0.1 * j for j in range(8)}), [50.0],
+                        num_coefs=5, num_select=8)
+    check(host[3][0] == 5, "the budget did not stop the sweep at 5 events")
+    err = max(err, e)
+    # e_res falls by ~2.25 per accept from 20, past 20 * 0.6 at the 4th
+    host, e = loop_case(dev, bank, k, 1.0, peaked({64 + 128 * j: 1.5 for j in range(8)}, noise=1e-4), [20.0],
+                        num_coefs=40, num_select=8, tolerance_snr=float(-10 * np.log10(0.6)))
+    check(host[3][0] == 4, f"the SNR stop did not end the sweep at 4 events ({host[3][0]})")
+    err = max(err, e)
+    log("[3] sweep: the 2W-1 guard, the budget and the SNR stop mid-sweep: kernel == plain == oracle")
+
+    def real_init(k, w, n, b):
+        bank = unit_bank(rng, k, w)
+        xs = rng.standard_normal((b, n)).astype(np.float32)
+        s0, e0, _ = encode_init_batched(torch.from_numpy(xs[:, :, None]).to(dev), torch.from_numpy(bank).to(dev))
+        return bank, s0, e0
+
+    bank, s0, e0 = real_init(80, 16, 3001, 3)
+    for ns in (1, 3, 8, 16, 32, 48):
+        host, e = loop_case(dev, bank, 48, 0.5, s0, e0, num_coefs=300, num_select=ns)
+        check((host[3] > 0).all(), f"no events at num_select={ns}")
+        err = max(err, e)
+    log(f"[3] sweep: num_select 1, 3, 8, 16, 32, 48 at K=80, W=16, npos={s0.shape[2]}: kernel == plain == oracle")
+    bank, s0, e0 = real_init(96, 65, 16353, 4)
+    host, e = loop_case(dev, bank, 32, 0.9, s0, e0, num_coefs=192, num_select=8, oracle_blocks=(0, 3))
+    err = max(err, e)
+    log(f"[3] sweep: level-1 geometry K=96, W=65, npos={s0.shape[2]}, 192 coefs: kernel == plain, == oracle "
+        f"on 2 blocks; mean events {float(host[3].mean()):.1f}")
+    for seed in range(12):
+        r = np.random.default_rng(1000 + seed)
+        k, w = int(r.integers(1, 97)), int(r.integers(1, 65))
+        n, m = int(r.integers(w, 12000)), int(r.integers(0, 400))
+        ns, amp_bits = int(r.integers(1, 41)), int(r.integers(4, 17))
+        tol = None if r.random() < 0.5 else float(r.uniform(3.0, 20.0))
+        n_raw, sw = int(r.integers(1, k + 1)), float(r.choice([1.0, 0.5, 2.0]))
+        bank = unit_bank(r, k, w)
+        xs = r.standard_normal((4, n)).astype(np.float32)
+        xs[2] = 0.0
+        s0, e0, _ = encode_init_batched(torch.from_numpy(xs[:, :, None]).to(dev), torch.from_numpy(bank).to(dev))
+        _, e = loop_case(dev, bank, n_raw, sw, s0, e0, amp_bits=amp_bits, oracle_blocks=(0,), num_coefs=m,
+                         num_select=ns, tolerance_snr=tol)
+        err = max(err, e)
+    log("[3] sweep: 12 random geometries (K 1-96, W 1-64, num_select 1-40): kernel == plain, == oracle on a block")
+    return err
+
+
 def hierarchy(dev, card: str):
     """Phases 7-10: the two new kernels and the hierarchy end to end at the
     flagship hierarchy.  Returns the kernels' JSON entries and the phase-9
@@ -193,6 +360,7 @@ def hierarchy(dev, card: str):
     import dataclasses
 
     import torch
+    import torch.nn.functional as F
 
     from hsc_torch import MultilevelDictionary, SignalGenerator, make_test_config
     from hsc_torch.ops import decode_integer_kernel, decode_kernel, init_kernels, mp_kernels
@@ -201,12 +369,12 @@ def hierarchy(dev, card: str):
         encode_init_int_batched,
         encode_init_int_raw_torch,
         feature_map_int,
+        mp_encode_from_init_torch,
         quantizer_steps,
     )
-    from hsc_torch.runtime import CorpusEncoder
-    from hsc_tpu.io import unpack_corpus
-    from hsc_tpu.oracle import hierarchical_decode
-    from hsc_tpu.oracle.mp import (
+    from hsc_torch.io import unpack_corpus
+    from hsc_torch.oracle import hierarchical_decode
+    from hsc_torch.oracle.mp import (
         LevelStream,
         bank_quantize_int16,
         feature_map_int_from_events,
@@ -215,7 +383,8 @@ def hierarchy(dev, card: str):
         mp_encode,
         rep_quantize,
     )
-    from hsc_tpu.utils import snr_db
+    from hsc_torch.runtime import CorpusEncoder
+    from hsc_torch.utils import snr_db
 
     cfg = make_test_config(**HIER)
     check(cfg.hier_init == "int8" and cfg.decode_mode == "integer", "flagship hierarchy resolved otherwise")
@@ -270,7 +439,7 @@ def hierarchy(dev, card: str):
 
     # ---- 8. ordered-decode kernel vs plain version vs oracle --------------
     sc1, iv1 = quantizer_steps(peak_1.cpu().numpy(), cfg.amp_bits)
-    enc1 = mp1.loop_stage(s0_1, e0_1, sc1, iv1)
+    enc1 = mp1.loop_stage(s0_1.clone(), e0_1, sc1, iv1)
     bank1 = coder._rep_banks[1]
     dec_args = (enc1.positions, enc1.atoms, enc1.codes, enc1.count, enc1.scale, bank1)
     got = decode_kernel.mp_decode_batch(*dec_args, n=cfg.block_size)
@@ -392,8 +561,22 @@ def hierarchy(dev, card: str):
     # ---- 10. timing in turns, median [range] -------------------------------
     in_k, in_p = turns(lambda: cuda_ms(lambda: init_kernels.sparse_init_raw(*init_args), 10),
                        lambda: cuda_ms(lambda: encode_init_int_raw_torch(*init_args), 1), 4)
+    # one PyTorch call for the raw rows' integer correlation: a float64
+    # conv1d of the map against the int16 bank codes (exact below 2^53)
+    m64 = m_int.double().transpose(1, 2).contiguous()
+    bq64 = (mp1.bank_planes[..., 0].double() + 256.0 * mp1.bank_planes[..., 1].double()).permute(0, 2, 1)
+    bq64 = bq64.contiguous()
+    in_lib = statistics.median([cuda_ms(lambda: F.conv1d(m64, bq64), 1) for _ in range(2)])
+    del m64
     od_k, od_p = turns(lambda: cuda_ms(lambda: decode_kernel.mp_decode_batch(*dec_args, n=cfg.block_size), 50),
                        lambda: cuda_ms(lambda: mp_decode_batch_torch(*dec_args, n=cfg.block_size), 5), 4)
+    sc1_t, iv1_t = torch.from_numpy(sc1).to(dev), torch.from_numpy(iv1).to(dev)
+    l1_k, l1_p = turns(
+        lambda: fresh_ms(s0_1.clone, lambda s: mp_kernels.mp_loop(s, e0_1, sc1_t, iv1_t, mp1.params, **mp1.settings), 3),
+        lambda: fresh_ms(lambda: s0_1, lambda s: mp_encode_from_init_torch(s, e0_1, sc1_t, iv1_t, mp1.params,
+                                                                           **mp1.settings), 1),
+        4)
+    l1_bound = loop_bound(s0_1, mp1.params, enc1)
     mb = N_BLOCKS * cfg.block_size * 4 / 1e6
     enc_k, enc_p = turns(lambda: mb / wall_s(lambda: codec.encode(xs)), lambda: mb / wall_s(lambda: plain.encode(xs)), 2)
     di_k, di_p = turns(lambda: mb / wall_s(lambda: codec.decode(blob)), lambda: mb / wall_s(lambda: plain.decode(blob)), 4)
@@ -402,8 +585,12 @@ def hierarchy(dev, card: str):
     log(f"[10] card {card}")
     log(f"[10] int8 level-1 init raw rows, one {BATCH}-block batch: sparse-init kernel {stats(in_k, 'ms')}, "
         f"plain float64 dense conv {stats(in_p, 'ms')}")
+    log(f"[10] (float64 conv1d of the map against the bank codes, one call: {in_lib:.3f} ms)")
     log(f"[10] ordered decode, one {BATCH}-block batch of top streams: kernel {stats(od_k, 'ms')}, "
         f"plain {stats(od_p, 'ms')}")
+    log(f"[10] greedy loop at level 1, one {BATCH}-block batch (K={mld.num_atoms(1)}, W={cfg.window_sizes[1]}, "
+        f"{int(enc1.count.sum())} events): kernel {stats(l1_k, 'ms')}, plain {stats(l1_p, 'ms')}; "
+        f"bound {l1_bound['bound_ms']:.4f} ms by {l1_bound['bound_by']}")
     log(f"[10] hierarchical CorpusEncoder.encode, {N_BLOCKS} blocks, host wall: cuda {stats(enc_k, 'MB/s', '.2f')}, "
         f"torch {stats(enc_p, 'MB/s', '.2f')}")
     log(f"[10] hierarchical decode (integer), host wall: cuda {stats(di_k, 'MB/s', '.2f')}, "
@@ -411,13 +598,20 @@ def hierarchy(dev, card: str):
     log(f"[10] hierarchical decode (ordered), host wall: cuda {stats(do_k, 'MB/s', '.2f')}, "
         f"torch {stats(do_p, 'MB/s', '.2f')}")
     log("[10] " + profile_line("hierarchical encode", lambda: codec.encode(xs)))
+    n_raw1, w1 = int(mp1.bank_planes.shape[0]), int(mp1.bank_planes.shape[1])
+    init_bound = card_bound(4 * (m_int.numel() + ps.numel() + raw_k.numel() + peak_k.numel()) + mp1.bank_planes.numel(),
+                       nnz * n_raw1 * w1 * 16)  # 4 digits x 2 planes, multiply and add
+    ev1 = int(enc1.count.sum())
+    od_bound = card_bound(12 * ev1 + 8 * BATCH + 4 * (bank1.numel() + got.numel()), 3 * ev1 * int(bank1.shape[1]))
     kernels = [
         {"name": "sparse_init", "route": "cuda", "source": "hsc_torch/csrc/sparse_init.cu",
          "replaces": "hsc_tpu/ops/init_kernels.py:76", "launches": launches["sparse_init"],
-         "max_abs_err": init_err, "ms": statistics.median(in_k), "plain_ms": statistics.median(in_p)},
+         "max_abs_err": init_err, "ms": statistics.median(in_k), "plain_ms": statistics.median(in_p),
+         **init_bound, "library_ms": in_lib},
         {"name": "ordered_decode", "route": "cuda", "source": "hsc_torch/csrc/ordered_decode.cu",
          "replaces": "hsc_tpu/ops/decode_kernel.py:33", "launches": launches["ordered_decode"],
-         "max_abs_err": od_err, "ms": statistics.median(od_k), "plain_ms": statistics.median(od_p)},
+         "max_abs_err": od_err, "ms": statistics.median(od_k), "plain_ms": statistics.median(od_p),
+         **od_bound, "library_ms": None},
     ]
     return kernels, launches
 
@@ -435,16 +629,16 @@ def main() -> int:
     from hsc_torch.ops.decode import mp_decode_integer_batch_torch
     from hsc_torch.ops.encode import encode_init_batched, mp_encode_from_init_torch, quantizer_steps
     from hsc_torch.params import level_params_from_mld
-    from hsc_torch.runtime import CorpusEncoder
-    from hsc_tpu.io import unpack_corpus
-    from hsc_tpu.oracle.mp import (
+    from hsc_torch.io import unpack_corpus
+    from hsc_torch.oracle.mp import (
         LevelStream,
         correlate_bank,
         mp_decode_integer,
         mp_encode,
         rep_quantize,
     )
-    from hsc_tpu.utils import snr_db
+    from hsc_torch.runtime import CorpusEncoder
+    from hsc_torch.utils import snr_db
 
     # ---- 1. device and toolchain ------------------------------------------
     smi = run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]).splitlines()[0]
@@ -493,10 +687,12 @@ def main() -> int:
     mp_err = 0.0
     for ns, tol in ((8, None), (1, None), (3, None), (8, 5.0)):
         kw = dict(settings, num_select=ns, tolerance_snr=tol)
-        got = mp_kernels.mp_loop(s0, e0, scale, inv, params, **kw)
+        s0_k = s0.clone()  # the kernel updates its scores in place
+        got = mp_kernels.mp_loop(s0_k, e0, scale, inv, params, **kw)
         ref = mp_encode_from_init_torch(s0, e0, scale, inv, params, **kw)
         torch.cuda.synchronize()
-        check(torch.equal(s0.cpu(), torch.from_numpy(s0_host)), "mp_loop modified its scores0")
+        check(torch.equal(s0.cpu(), torch.from_numpy(s0_host)), "the plain loop modified its scores0")
+        check(not torch.equal(s0_k, s0), "mp_loop did not update its scores in place")
         check(fields_equal(got, ref), f"mp_encode kernel != plain at num_select={ns} tol={tol}")
         mp_err = max(mp_err, max_abs_diff(got, ref))
         check(int(got.count[BATCH - 1]) == 0, "all-zero block emitted events")
@@ -513,6 +709,7 @@ def main() -> int:
         log(f"[3] mp_encode ns={ns} tol={tol}: kernel == plain bitwise (7 fields x {BATCH} blocks), "
             f"== oracle on 2 blocks; mean events {float(got.count.float().mean()):.1f}")
     enc = encodes[(8, None)]
+    mp_err = max(mp_err, sweep_edge_cases(dev))
 
     # ---- 4. integer-decode kernel vs plain version vs oracle ---------------
     rep_q, step = params.rep_q, params.rep_step
@@ -577,9 +774,10 @@ def main() -> int:
 
     # ---- 6. timing: plain and kernel in turns (P K K P ...), median [range] --
     kw8 = dict(settings, num_select=8)
-    mp_k, mp_p = turns(lambda: cuda_ms(lambda: mp_kernels.mp_loop(s0, e0, scale, inv, params, **kw8), 3),
-                       lambda: cuda_ms(lambda: mp_encode_from_init_torch(s0, e0, scale, inv, params, **kw8), 1),
-                       4)
+    mp_k, mp_p = turns(
+        lambda: fresh_ms(s0.clone, lambda s: mp_kernels.mp_loop(s, e0, scale, inv, params, **kw8), 3),
+        lambda: fresh_ms(lambda: s0, lambda s: mp_encode_from_init_torch(s, e0, scale, inv, params, **kw8), 1),
+        4)
     dec_k, dec_p = turns(
         lambda: cuda_ms(lambda: decode_integer_kernel.mp_decode_integer_batch(*dec_args, n=cfg.block_size), 50),
         lambda: cuda_ms(lambda: mp_decode_integer_batch_torch(*dec_args, n=cfg.block_size), 10), 4)
@@ -593,8 +791,12 @@ def main() -> int:
                        lambda: mb / wall_s(lambda: plain.decode(blob)), 4)
     mp_ms, mp_plain_ms = statistics.median(mp_k), statistics.median(mp_p)
     dec_ms, dec_plain_ms = statistics.median(dec_k), statistics.median(dec_p)
+    mp_bound = loop_bound(s0, params, enc)
+    ev = int(enc.count.sum())
+    dec_bound = card_bound(12 * ev + 8 * BATCH + 4 * (rep_q.numel() + got.numel()), 2 * ev * int(rep_q.shape[1]))
     log(f"[6] card {card}")
-    log(f"[6] greedy loop, one {BATCH}-block batch (ns=8): kernel {stats(mp_k, 'ms')}, plain {stats(mp_p, 'ms')}")
+    log(f"[6] greedy loop, one {BATCH}-block batch (ns=8, {ev} events): kernel {stats(mp_k, 'ms')}, "
+        f"plain {stats(mp_p, 'ms')}; bound {mp_bound['bound_ms']:.4f} ms by {mp_bound['bound_by']}")
     log(f"[6] integer decode, one {BATCH}-block batch: kernel {stats(dec_k, 'ms')}, plain {stats(dec_p, 'ms')}")
     log(f"[6] CorpusEncoder.encode, {N_BLOCKS} blocks, host wall: cuda {stats(enc_k, 'MB/s', '.2f')}, "
         f"torch {stats(enc_p, 'MB/s', '.2f')}")
@@ -612,15 +814,17 @@ def main() -> int:
     # (phase 9), which runs all four; phase 5's counts were checked above
     hier_kernels, launches = hierarchy(dev, card)
 
-    check("jax" not in sys.modules, "JAX was imported")
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "hsc_tpu"))
+    check(not loaded, f"JAX or the JAX package was imported: {loaded}")
+    # no single PyTorch call computes the greedy loop or either decode's
+    # event walk, so their library_ms is null
     kernels = [
         {"name": "mp_encode", "route": "cuda", "source": "hsc_torch/csrc/mp_encode.cu",
          "replaces": "hsc_tpu/ops/mp_kernels.py:83", "launches": launches["mp_encode"],
-         "max_abs_err": mp_err,
-         "ms": mp_ms, "plain_ms": mp_plain_ms},
+         "max_abs_err": mp_err, "ms": mp_ms, "plain_ms": mp_plain_ms, **mp_bound, "library_ms": None},
         {"name": "int_decode", "route": "cuda", "source": "hsc_torch/csrc/int_decode.cu",
          "replaces": "hsc_tpu/ops/decode_integer_kernel.py:61", "launches": launches["int_decode"],
-         "max_abs_err": dec_err, "ms": dec_ms, "plain_ms": dec_plain_ms},
+         "max_abs_err": dec_err, "ms": dec_ms, "plain_ms": dec_plain_ms, **dec_bound, "library_ms": None},
         *hier_kernels,
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

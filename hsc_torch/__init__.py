@@ -15,15 +15,17 @@ for an NVIDIA Hopper card and mirrors its layout and names:
   runtime       — CorpusEncoder: the hierarchy's encode -> container ->
                   decode, both decode modes, top-only or distributed
 
-Shared, not ported: `config`, `dictionary`, `signal`, `oracle`, `io` and
-`utils` import no JAX, so the port imports them from `hsc_tpu` as they are —
-the stream format, the dictionary model and the NumPy spec stay one thing.
-Nothing in this package imports JAX.
+The port keeps its own copies of the JAX package's NumPy modules, verbatim:
+`config`, `dictionary`, `signal`, `oracle` (the NumPy spec), `io` (the
+container format and its native packer, `csrc/bitpack.cpp`) and `utils`
+(`normalize`, `snr_db`).  tests/test_torch_copies.py holds each equal to its
+original.  Nothing in this package imports JAX or `hsc_tpu`; a JAX
+package's dictionary crosses over through `params.dictionary_from_arrays`.
 """
 
-from hsc_tpu.config import CodecConfig, make_test_config
-from hsc_tpu.dictionary import MultilevelDictionary
-from hsc_tpu.signal import SignalGenerator
+from .config import CodecConfig, make_test_config
+from .dictionary import MultilevelDictionary
+from .signal import SignalGenerator
 
 __version__ = "0.1.0"
 

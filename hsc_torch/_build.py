@@ -3,9 +3,10 @@
 The same content-hashed idea as `hsc_tpu.io.native`: the sources and flags
 are hashed, the library goes to ``build/hsc_torch_kernels/<hash>/`` at the
 repository root, and a changed source can never load a stale binary.
-`nvcc` builds one shared library with a plain C interface, loaded with
-`ctypes` — no PyTorch headers, so the build takes seconds.  There is no
-fallback: a missing `nvcc` or a failed build raises.
+`nvcc` compiles every source at once, one process each, and links one
+shared library with a plain C interface, loaded with `ctypes` — no PyTorch
+headers, so the build takes seconds.  There is no fallback: a missing
+`nvcc` or a failed build raises.
 
 Flags: ``sm_90a`` (Hopper), and ``-fmad=false`` so the compiler never
 contracts a multiply and an add into one FMA — the codec's float32 spec
@@ -29,10 +30,11 @@ _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
 _BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "hsc_torch_kernels")
 _TOOLKIT_NVCC = "/usr/local/cuda/bin/nvcc"
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
+    *_ARCH,
     "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
 
@@ -93,16 +95,30 @@ def load() -> ctypes.CDLL:
             # concurrent process never loads a half-written library
             tmp = f"{path}.tmp{os.getpid()}"
             t0 = time.perf_counter()
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()],
-                capture_output=True,
-                text=True,
-                timeout=600,
-            )
+            nvcc = _nvcc()
+            objs = [f"{tmp}.{os.path.basename(src)}.o" for src in _sources()]
+            procs = [
+                subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                )
+                for src, obj in zip(_sources(), objs)
+            ]
+            logs = [p.communicate(timeout=600)[0] for p in procs]
+            link = None
+            if all(p.returncode == 0 for p in procs):
+                link = subprocess.run(
+                    [nvcc, *_ARCH, "-shared", "-o", tmp, *objs],
+                    capture_output=True, text=True, timeout=600,
+                )
+                logs.append(link.stdout + link.stderr)
+            for obj in objs:
+                if os.path.exists(obj):
+                    os.remove(obj)
             BUILD_SECONDS = time.perf_counter() - t0
-            BUILD_LOG = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed (rc {proc.returncode}):\n{BUILD_LOG}")
+            BUILD_LOG = "".join(logs)
+            if link is None or link.returncode != 0:
+                raise RuntimeError(f"nvcc failed:\n{BUILD_LOG}")
             os.replace(tmp, path)
         lib = ctypes.CDLL(path)
         for name, argtypes in _SIGNATURES.items():

@@ -1,39 +1,77 @@
-// Greedy convolutional matching pursuit on Hopper: one CTA encodes one block.
+// Greedy convolutional matching pursuit on Hopper: one CTA encodes one block,
+// and each sweep decides all of its candidates in one pass.
 //
-// Replaces: hsc_tpu/ops/mp_kernels.py :: _mp_kernel (the fused Pallas greedy
-// loop, launched by _mp_pallas_stage).  It computes the spec of
+// Replaces: hsc_tpu/ops/mp_kernels.py :: _mp_kernel (:83, the fused Pallas
+// greedy loop, launched by _mp_pallas_stage).  It computes the spec of
 // hsc_tpu/oracle/mp.py :: mp_encode given an injected init, bitwise: the
 // plain PyTorch version is hsc_torch/ops/encode.py :: mp_encode_from_init_torch.
 // The Mosaic layout (roll placement, 128-lane chunks, folded selection rows,
 // MXU one-hot extraction) has no meaning here and is not carried over.
 //
-// What bounds it on this card: a block is a serial chain of accepts, each a
-// selection followed by a small update (K x (2W-1) scores).  The work per
-// accept is tiny, so the time is latency: block-wide barriers and the reads
-// of the update window from L2 / device memory.  Flagship scores are
-// K x npos f32 = 64 x 16353 x 4 B = 4.2 MB per block, far beyond the 227 KB
-// of shared memory, so they stay in global memory (a scratch copy the
-// wrapper makes); only the per-position selection cache (npos f32, 64 KB)
-// lives in shared memory, where the argmax scans it.
+// What bounds it on this card.  Bytes: the scores are read once to build the
+// selection cache, K x npos f32 per block -- 64 x 16353 x 4 B = 4.2 MB at
+// the flat flagship, 268 MB per 64-block batch, 0.080 ms at 3.35 TB/s; 96 x
+// 16289 x 4 B per block at level 1 of the flagship hierarchy, 400 MB, 0.119
+// ms.  Latency: a block is a chain of at least num_coefs / num_select
+// dependent sweeps (>= 64 at the flat flagship, >= 24 at level 1), each a
+// selection, a decision and a small update, so what one sweep costs in
+// barriers and memory round trips sets the time.  The scores stay in global
+// memory (4.2 MB per block is far beyond 227 KB of shared memory) and are
+// updated IN PLACE: the caller's buffer is the loop state.  The selection
+// cache lives in shared memory: per position the largest |score| * weight
+// over the atoms (f32) and the lowest atom that reaches it (u16), 6 bytes
+// per position (96 KB at npos 16353; npos up to ~38,000 fits).  Measured
+// (scripts/torch_mp_loop_phases.py): phase D below, which reads and writes
+// the K x (2W-1) scores of every accepted window in device memory (0.53 GB
+// each way per 64-block batch at the flat flagship, 0.62 GB at level 1),
+// takes half of the time at level 0 and two thirds at level 1; the first
+// pass takes a sixth.
 //
-// Design: blocks are the parallel axis (grid = B).  Every num_select S >= 1
-// runs as sweeps; S = 1 is the plain greedy loop (see the plain version's
-// docstring).  Per sweep:
+// Design: blocks are the parallel axis (grid = B, 512 threads each).  Every
+// num_select S >= 1 runs as sweeps; S = 1 is the plain greedy loop (see the
+// plain version's docstring).  One sweep has three block-wide barriers,
+// whatever S is:
 //   A. segmented argmax of the selection cache -> one candidate per spec
-//      segment (seg_len = 128*ceil(npos/(128*S))); warps scan contiguous
-//      32-aligned runs, reduce with lowest-index tie-breaks, and merge into a
-//      per-segment 64-bit key (value bits << 32 | ~position) with a shared
-//      atomicMax — value first, then the LOWEST position, like argmax.
-//   per candidate, left to right:
-//   B. warp 0: atom argmax at the candidate column (lowest atom on ties);
-//      thread 0 quantizes, checks code != 0, the 2W-1 guard and the budget,
-//      records the event and runs the energy recursion and the SNR stop.
-//   C. all warps: subtract c_hat * G[:, f, :] over the window (warps over
-//      atoms, lanes over columns) and take each warp's column maxima.
-//   D. merge the warps' maxima into the selection cache.
-// Thread 0 owns the per-block state; it publishes each decision through a
-// double-buffered shared slot, so a barrier separates every write of a slot
-// from the reads of its previous value.
+//      segment (seg_len = 128*ceil(npos/(128*S))); each warp scans a run of
+//      whole 128-position steps (four positions a lane, one conflict-free
+//      16-byte load), reduces with lowest-index tie-breaks, and merges into
+//      a per-segment 64-bit key (value bits << 32 | ~position) with a shared
+//      atomicMax -- value first, then the LOWEST position, like argmax.  Key
+//      0 means the segment has no candidate (it lies past npos).
+//   C. warp 0, one lane per candidate: the atom is the cache's (the lowest
+//      atom of the column's weighted maximum, as the atom argmax defines
+//      it), the score is read at (atom, position), and the code is
+//      sign*floor(|s*inv|+0.5) clipped to +-maxcode, with c_hat and the two
+//      products of the energy recursion.  Then lane 0 walks the S decisions
+//      in candidate order: emit (code != 0), the 2W-1 guard against the last
+//      EMITTED position, the budget, the energy recursion in the oracle's op
+//      order and the SNR stop; it writes the events and a compact list of
+//      the accepted windows.  Meanwhile the other warps ask L2 for every
+//      candidate's update window and Gram rows (prefetch).
+//   D. every accepted window is updated at once: one thread owns one
+//      (accepted candidate, column) pair, subtracts c_hat * G[:, f, lag] from
+//      all K scores of its column (16 atoms' loads in flight before any
+//      store) and writes the column's new maximum and atom into the cache.
+// A sweep that accepts nothing ends the block.  The first pass over the
+// scores builds the cache the same way, 32 atoms' loads in flight.
+//
+// Why the parallel sweep is bitwise the serial one (the oracle accepts the
+// candidates left to right and updates after each accept).  The candidates
+// come from the sweep-start cache in both.  Candidates lie in increasing
+// segments, so their positions increase.  A candidate that the guard admits
+// lies >= 2W-1 after the last emitted position, hence >= 2W-1 after every
+// position emitted earlier in the sweep: its column is outside every earlier
+// update window (which reach W-1 to either side), so the atom and score it
+// reads in C are exactly the ones the serial loop would read.  A candidate
+// whose column lies inside an earlier window is within W-1 of that window's
+// position, so the guard rejects it whatever its code, and a rejected
+// candidate emits nothing.  The decisions in C are therefore the serial ones,
+// made by the same rounded operations in the same order (the products
+// (2 c_hat) s and c_hat^2 do not depend on the running energy, so computing
+// them ahead changes no bit).  Windows of two accepted candidates are >= 2W-1
+// apart and disjoint, so the updates of D touch each score at most once and
+// commute, and each column's cache entry is the maximum over its final
+// scores, as after the serial update.
 //
 // Spec rules (docs/DESIGN.md "Numerical reproducibility"): no division in the
 // loop (scale and 1/scale come from the host), round half away from zero as
@@ -45,10 +83,37 @@
 #include <climits>
 #include <cstdint>
 
+// Phase clocks, for scripts/torch_mp_loop_phases.py only: built with
+// -DHSC_MP_PHASE_CLOCKS, thread 0 of every CTA adds the cycles it spends in
+// the first pass, in phase A, in phase C's gather and walk, and in phase D
+// (each up to the barrier or warp sync that ends it) and the sweep count to
+// g_phase_cycles.  The library the port loads is built without it, and
+// PHASE_MARK is then empty.
+#ifdef HSC_MP_PHASE_CLOCKS
+__device__ unsigned long long g_phase_cycles[6];
+#define PHASE_MARK(slot)                    \
+  do {                                      \
+    if (tid == 0) {                         \
+      const long long now = clock64();      \
+      phase[slot] += now - phase_last;      \
+      phase_last = now;                     \
+    }                                       \
+  } while (0)
+#else
+#define PHASE_MARK(slot) \
+  do {                   \
+  } while (0)
+#endif
+
 namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
+// atoms whose loads one thread has in flight at once: all of a chunk is
+// loaded before any of it is used, and 32 values (16 scores and 16 Gram
+// entries in phase D, 32 scores in the first pass) stay within the 128
+// registers a thread of a 512-thread CTA may hold
+constexpr int kChunk = 16;
 constexpr unsigned kFull = 0xffffffffu;
 
 // (v, i) beats (bv, bi): larger value, then lower index
@@ -59,8 +124,8 @@ __device__ __forceinline__ bool beats(float v, int i, float bv, int bi) {
 // lane 0 ends with the warp's best (value, index)
 __device__ __forceinline__ void warp_argmax(float& v, int& i) {
   for (int off = 16; off > 0; off >>= 1) {
-    float ov = __shfl_down_sync(kFull, v, off);
-    int oi = __shfl_down_sync(kFull, i, off);
+    const float ov = __shfl_down_sync(kFull, v, off);
+    const int oi = __shfl_down_sync(kFull, i, off);
     if (beats(ov, oi, v, i)) {
       v = ov;
       i = oi;
@@ -75,14 +140,60 @@ __device__ __forceinline__ unsigned long long pack_key(float v, int i) {
          static_cast<unsigned>(~static_cast<unsigned>(i));
 }
 
-struct Decision {
-  int emit;
-  int f;
-  int stop;
-  float c_hat;
-};
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+}
 
-__global__ void __launch_bounds__(kThreads)
+// ask L2 for the 128-byte lines of [p, p + n) floats
+__device__ __forceinline__ void prefetch_span(const float* p, int n) {
+  const uintptr_t last = reinterpret_cast<uintptr_t>(p + n - 1);
+  for (uintptr_t a = reinterpret_cast<uintptr_t>(p) & ~uintptr_t(127); a <= last; a += 128)
+    prefetch_l2(reinterpret_cast<const void*>(a));
+}
+
+// The column's selection-cache entry from its K scores `col[g * npos]`:
+// the largest |score| * weight and the LOWEST atom that reaches it.  With
+// `update`, every score first becomes s - c_hat * G (grow[g * lag]) and is
+// written back.  `chunk` loads are issued before any of their values is used.
+template <bool update, int chunk>
+__device__ __forceinline__ void column_max(float* col, const float* grow, float c_hat, int K, int npos,
+                                           int lag, const float* wsh, float& m, int& f) {
+  m = -1.f;
+  f = 0;
+  for (int g0 = 0; g0 < K; g0 += chunk) {
+    float v[chunk], gv[update ? chunk : 1];
+    const float* src = col;
+    const float* gsrc = grow;
+#pragma unroll
+    for (int u = 0; u < chunk; ++u) {
+      if (g0 + u < K) {
+        v[u] = *src;
+        if (update) gv[update ? u : 0] = *gsrc;
+      }
+      src += npos;
+      gsrc += lag;
+    }
+#pragma unroll
+    for (int u = 0; u < chunk; ++u) {
+      if (g0 + u < K) {
+        float x = v[u];
+        if (update) {
+          x = __fsub_rn(x, __fmul_rn(c_hat, gv[update ? u : 0]));
+          col[static_cast<size_t>(u) * npos] = x;
+        }
+        const float y = __fmul_rn(fabsf(x), wsh[g0 + u]);
+        if (y > m) {  // atoms rise: strict > keeps the lowest
+          m = y;
+          f = g0 + u;
+        }
+      }
+    }
+    col += static_cast<size_t>(chunk) * npos;
+    grow += static_cast<size_t>(chunk) * lag;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
 mp_encode_kernel(float* __restrict__ scores,        // [B, K, npos], in place
                  const float* __restrict__ e0,      // [B]
                  const float* __restrict__ scale,   // [B]
@@ -94,20 +205,34 @@ mp_encode_kernel(float* __restrict__ scores,        // [B, K, npos], in place
                  int* __restrict__ codes,           // [B, M]
                  int* __restrict__ count_out,       // [B]
                  float* __restrict__ eres_out,      // [B]
-                 int K, int W, int npos, int M, int S, int seg_len,
+                 int K, int W, int npos, int M, int S, int seg_len, int span,
                  float maxcode, int has_tol, float snr_factor) {
-  extern __shared__ unsigned long long smem[];
-  unsigned long long* cand = smem;                        // [S]
-  float* colmax = reinterpret_cast<float*>(cand + S);     // [npos]
-  float* wsh = colmax + npos;                             // [K]
-  const int lag = 2 * W - 1;
-  float* part = wsh + K;                                  // [kWarps, lag]
-  __shared__ Decision slot[2];
+  // the selection cache holds npos rounded up to a multiple of 128, a whole
+  // phase-A step (entries past npos are never taken as candidates)
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ncache = (npos + 127) / 128 * 128;
+  float* colmax = reinterpret_cast<float*>(smem);                          // [ncache]
+  unsigned short* colarg = reinterpret_cast<unsigned short*>(colmax + ncache);  // [ncache]
+  unsigned long long* cand = reinterpret_cast<unsigned long long*>(colarg + ncache);  // [S]
+  float* wsh = reinterpret_cast<float*>(cand + S);  // [K] selection weights
+  float* cand_s = wsh + K;          // [S] score at (f, t)
+  float* cand_c = cand_s + S;       // [S] c_hat = code * scale
+  float* cand_e2 = cand_c + S;      // [S] (2 c_hat) s
+  float* cand_c2 = cand_e2 + S;     // [S] c_hat^2
+  float* acc_c = cand_c2 + S;       // [S] c_hat of the accepted
+  int* cand_t = reinterpret_cast<int*>(acc_c + S);  // [S] position, -1: none
+  int* cand_f = cand_t + S;         // [S] atom
+  int* cand_code = cand_f + S;      // [S] code
+  int* acc_t = cand_code + S;       // [S] accepted positions
+  int* acc_f = acc_t + S;           // [S] accepted atoms
+  __shared__ int n_acc_sh;
+  __shared__ int stop_sh;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int b = blockIdx.x;
+  const int lag = 2 * W - 1;
   float* sc = scores + static_cast<size_t>(b) * K * npos;
   int* pos_out = positions + static_cast<size_t>(b) * M;
   int* atom_out = atoms + static_cast<size_t>(b) * M;
@@ -115,13 +240,16 @@ mp_encode_kernel(float* __restrict__ scores,        // [B, K, npos], in place
   const float scale_b = scale[b];
   const float inv_b = inv[b];
 
+#ifdef HSC_MP_PHASE_CLOCKS
+  long long phase[6] = {0, 0, 0, 0, 0, 0};  // init, A, C's gather, C's walk, D, sweeps
+  long long phase_last = clock64();
+#endif
   // per-block state, meaningful in thread 0 only
   int count = 0;
   float e_res = e0[b];
   const float snr_thr = __fmul_rn(e0[b], snr_factor);
   bool done = !(scale_b > 0.f);  // an all-zero block emits nothing
-  int last_t = -1;
-  bool any = false;
+  bool stop = done || M == 0;    // the same value in every thread
 
   for (int i = tid; i < M; i += kThreads) {
     pos_out[i] = 0;
@@ -129,34 +257,30 @@ mp_encode_kernel(float* __restrict__ scores,        // [B, K, npos], in place
     code_out[i] = 0;
   }
   for (int g = tid; g < K; g += kThreads) wsh[g] = weights[g];
+  for (int j = tid; j < S; j += kThreads) cand[j] = 0ull;  // 0 = no candidate
   __syncthreads();
-  for (int p = tid; p < npos; p += kThreads) {
-    float m = 0.f;
-    for (int g = 0; g < K; ++g)
-      m = fmaxf(m, __fmul_rn(fabsf(sc[static_cast<size_t>(g) * npos + p]), wsh[g]));
+  // the selection cache: each column's weighted maximum and its atom
+  for (int p = tid; p < npos && !stop; p += kThreads) {
+    float m;
+    int f;
+    column_max<false, 2 * kChunk>(sc + p, gram_t, 0.f, K, npos, lag, wsh, m, f);
     colmax[p] = m;
+    colarg[p] = static_cast<unsigned short>(f);
   }
-
-  int step = 0;  // publish counter: slot[step & 1]
-  if (tid == 0) slot[0].stop = done || count >= M;
   __syncthreads();
-  bool stop = slot[step & 1].stop;
-  ++step;
-
-  // each warp scans one contiguous, 32-aligned run of positions in phase A;
-  // seg_len is a multiple of 128, so a 32-wide group never straddles segments
-  const int run = ((npos + kWarps - 1) / kWarps + 31) & ~31;
+  PHASE_MARK(0);
 
   while (!stop) {
     // ---- A: one candidate per segment from the sweep-start cache ----------
-    for (int j = tid; j < S; j += kThreads) cand[j] = 0ull;  // 0 = no candidate
-    __syncthreads();
+    // Each warp scans its run of `span` positions in steps of 128, four per
+    // lane (one conflict-free 16-byte shared load); seg_len is a multiple of
+    // 128, so a step never straddles a segment.
     {
-      const int p1 = min((warp + 1) * run, npos);
+      const int end = min((warp + 1) * span, npos);
       float bv = -1.f;
       int bi = INT_MAX;
       int seg = -1;
-      for (int base = warp * run; base < p1; base += 32) {
+      for (int base = warp * span; base < end; base += 128) {
         const int sj = base / seg_len;  // uniform across the warp
         if (sj != seg) {
           if (seg >= 0) {
@@ -167,14 +291,13 @@ mp_encode_kernel(float* __restrict__ scores,        // [B, K, npos], in place
           bv = -1.f;
           bi = INT_MAX;
         }
-        const int p = base + lane;
-        if (p < p1) {
-          const float v = colmax[p];
-          if (v > bv) {  // positions rise per lane: strict > keeps the first
-            bv = v;
-            bi = p;
-          }
-        }
+        const int p = base + 4 * lane;
+        const float4 v4 = *reinterpret_cast<const float4*>(colmax + p);
+        // positions rise per lane: strict > keeps the first
+        if (p < npos && v4.x > bv) { bv = v4.x; bi = p; }
+        if (p + 1 < npos && v4.y > bv) { bv = v4.y; bi = p + 1; }
+        if (p + 2 < npos && v4.z > bv) { bv = v4.z; bi = p + 2; }
+        if (p + 3 < npos && v4.w > bv) { bv = v4.w; bi = p + 3; }
       }
       if (seg >= 0) {
         warp_argmax(bv, bi);
@@ -182,103 +305,109 @@ mp_encode_kernel(float* __restrict__ scores,        // [B, K, npos], in place
       }
     }
     __syncthreads();
-    if (tid == 0) {
-      last_t = -1;
-      any = false;
-    }
+    PHASE_MARK(1);
 
-    for (int j = 0; j < S && !stop; ++j) {
-      const unsigned long long key = cand[j];
-      if (key == 0ull) continue;  // segment lies past npos
-      const int t = static_cast<int>(~static_cast<unsigned>(key & 0xffffffffull));
-
-      // ---- B: atom argmax at column t, quantize, decide ------------------
-      if (warp == 0) {
-        float bv = -1.f;
-        int bi = INT_MAX;
-        for (int g = lane; g < K; g += 32) {
-          const float v = __fmul_rn(fabsf(sc[static_cast<size_t>(g) * npos + t]), wsh[g]);
-          if (v > bv) {
-            bv = v;
-            bi = g;
-          }
-        }
-        warp_argmax(bv, bi);
-        if (lane == 0) {
-          const int f = bi;
-          const float s = sc[static_cast<size_t>(f) * npos + t];
+    // ---- C: warp 0 decides; the other warps warm L2 for phase D -------------
+    if (warp == 0) {
+      // every candidate at once: its atom is the cache's, its score and code
+      // the sweep-start ones
+      for (int j = lane; j < S; j += 32) {
+        const unsigned long long key = cand[j];
+        int t = -1, f = 0, code = 0;
+        float s = 0.f, c_hat = 0.f;
+        if (key != 0ull) {
+          t = static_cast<int>(~static_cast<unsigned>(key & 0xffffffffull));
+          f = colarg[t];
+          s = sc[static_cast<size_t>(f) * npos + t];
           const float y = __fmul_rn(s, inv_b);
           float r = floorf(__fadd_rn(fabsf(y), 0.5f));
           r = y > 0.f ? r : (y < 0.f ? -r : 0.f);
           r = fminf(fmaxf(r, -maxcode), maxcode);
-          const int code = static_cast<int>(r);
-          const bool guard_ok = last_t < 0 || t - last_t >= lag;
-          const bool emit = !done && code != 0 && guard_ok && count < M;
-          float c_hat = 0.f;
-          if (emit) {
-            c_hat = __fmul_rn(static_cast<float>(code), scale_b);
-            pos_out[count] = t;
-            atom_out[count] = f;
-            code_out[count] = code;
-            ++count;
-            // e - (2 c_hat) s + c_hat^2 in the oracle's op order
-            e_res = __fadd_rn(__fsub_rn(e_res, __fmul_rn(__fmul_rn(2.f, c_hat), s)),
-                              __fmul_rn(c_hat, c_hat));
-            last_t = t;
-            any = true;
-            if (has_tol && e_res <= snr_thr) done = true;
-          }
-          Decision& d = slot[step & 1];
-          d.emit = emit;
-          d.f = f;
-          d.c_hat = c_hat;
-          d.stop = done || count >= M;
+          code = static_cast<int>(r);
+          c_hat = __fmul_rn(static_cast<float>(code), scale_b);
         }
+        cand_t[j] = t;
+        cand_f[j] = f;
+        cand_code[j] = code;
+        cand_s[j] = s;
+        cand_c[j] = c_hat;
+        cand_e2[j] = __fmul_rn(__fmul_rn(2.f, c_hat), s);
+        cand_c2[j] = __fmul_rn(c_hat, c_hat);
       }
-      __syncthreads();
-      const Decision d = slot[step & 1];
-      ++step;
-      stop = d.stop;
-      if (!d.emit) continue;
-
-      // ---- C: window update + per-warp column maxima ---------------------
-      const int lo = max(0, t - W + 1);
-      const int wlen = min(npos, t + W) - lo;
-      const int dlo = lo - (t - W + 1);
-      const float* grow = gram_t + static_cast<size_t>(d.f) * K * lag + dlo;
-      for (int c = lane; c < wlen; c += 32) {
-        float m = 0.f;
-        for (int g = warp; g < K; g += kWarps) {
-          float* sp = sc + static_cast<size_t>(g) * npos + lo + c;
-          const float v = __fsub_rn(*sp, __fmul_rn(d.c_hat, grow[static_cast<size_t>(g) * lag + c]));
-          *sp = v;
-          m = fmaxf(m, __fmul_rn(fabsf(v), wsh[g]));
+      __syncwarp();
+      PHASE_MARK(2);
+      if (lane == 0) {
+        // the serial walk, in candidate order
+        int n_acc = 0;
+        int last_t = -1;
+#pragma unroll 4
+        for (int j = 0; j < S; ++j) {
+          const int t = cand_t[j];
+          const int code = cand_code[j];
+          if (t < 0 || done || count >= M || code == 0) continue;
+          if (last_t >= 0 && t - last_t < lag) continue;  // interference guard
+          pos_out[count] = t;
+          atom_out[count] = cand_f[j];
+          code_out[count] = code;
+          ++count;
+          // e - (2 c_hat) s + c_hat^2 in the oracle's op order
+          e_res = __fadd_rn(__fsub_rn(e_res, cand_e2[j]), cand_c2[j]);
+          last_t = t;
+          acc_t[n_acc] = t;
+          acc_f[n_acc] = cand_f[j];
+          acc_c[n_acc] = cand_c[j];
+          ++n_acc;
+          if (has_tol && e_res <= snr_thr) done = true;
         }
-        part[warp * lag + c] = m;
+        if (n_acc == 0) done = true;  // a sweep that accepts nothing ends the block
+        n_acc_sh = n_acc;
+        stop_sh = done || count >= M;
       }
-      __syncthreads();
-      // ---- D: merge into the selection cache -----------------------------
-      for (int c = tid; c < wlen; c += kThreads) {
-        float m = part[c];
-        for (int q = 1; q < kWarps; ++q) m = fmaxf(m, part[q * lag + c]);
-        colmax[lo + c] = m;
+    } else {
+      for (int j = warp - 1; j < S; j += kWarps - 1) {
+        const unsigned long long key = cand[j];
+        if (key == 0ull) continue;
+        const int t = static_cast<int>(~static_cast<unsigned>(key & 0xffffffffull));
+        const int lo = max(0, t - W + 1);
+        const int wlen = min(npos, t + W) - lo;
+        for (int g = lane; g < K; g += 32) prefetch_span(sc + static_cast<size_t>(g) * npos + lo, wlen);
+        const float* gf = gram_t + static_cast<size_t>(colarg[t]) * K * lag;
+        for (int q = lane * 32; q < K * lag; q += 32 * 32) prefetch_l2(gf + q);
       }
-      __syncthreads();
-    }
-
-    // ---- sweep end: a sweep that accepted nothing ends the block ----------
-    if (tid == 0) {
-      if (!any) done = true;
-      slot[step & 1].stop = done || count >= M;
     }
     __syncthreads();
-    stop = slot[step & 1].stop;
-    ++step;
+    PHASE_MARK(3);
+    stop = stop_sh;
+    const int n_acc = n_acc_sh;
+
+    // ---- D: every accepted window at once, one column per thread -----------
+    for (int j = tid; j < S; j += kThreads) cand[j] = 0ull;  // for the next phase A
+    for (int idx = tid; idx < n_acc * lag; idx += kThreads) {
+      const int a = idx / lag;
+      const int c = idx - a * lag;
+      const int p = acc_t[a] - (W - 1) + c;
+      if (p < 0 || p >= npos) continue;
+      float m;
+      int f;
+      column_max<true, kChunk>(sc + p, gram_t + static_cast<size_t>(acc_f[a]) * K * lag + c, acc_c[a], K, npos,
+                       lag, wsh, m, f);
+      colmax[p] = m;
+      colarg[p] = static_cast<unsigned short>(f);
+    }
+    __syncthreads();
+    PHASE_MARK(4);
+#ifdef HSC_MP_PHASE_CLOCKS
+    if (tid == 0) ++phase[5];
+#endif
   }
 
   if (tid == 0) {
     count_out[b] = count;
     eres_out[b] = fmaxf(e_res, 0.f);
+#ifdef HSC_MP_PHASE_CLOCKS
+    for (int i = 0; i < 6; ++i)
+      atomicAdd(&g_phase_cycles[i], static_cast<unsigned long long>(phase[i]));
+#endif
   }
 }
 
@@ -291,18 +420,32 @@ extern "C" int hsc_mp_encode(float* scores, const float* e0, const float* scale,
                              int W, int npos, int M, int S, float maxcode,
                              int has_tol, float snr_factor, void* stream) {
   if (B == 0) return cudaSuccess;
-  if (K < 1 || W < 1 || npos < 1 || M < 0 || S < 1) return cudaErrorInvalidValue;
+  // atoms are cached as 16-bit indexes
+  if (K < 1 || K > 65535 || W < 1 || npos < 1 || M < 0 || S < 1) return cudaErrorInvalidValue;
   const int seg_len = 128 * ((npos + 128 * S - 1) / (128 * S));
-  const size_t smem = sizeof(unsigned long long) * S +
-                      sizeof(float) * (static_cast<size_t>(npos) + K + kWarps * (2 * W - 1));
+  // each warp's phase-A run: whole 128-position steps
+  const int span = 128 * ((npos + kWarps * 128 - 1) / (kWarps * 128));
+  const size_t ncache = static_cast<size_t>((npos + 127) / 128 * 128);
+  const size_t smem = ncache * (sizeof(float) + sizeof(unsigned short)) +
+                      sizeof(unsigned long long) * S + sizeof(float) * K + sizeof(int) * 10 * S;
   cudaError_t err = cudaFuncSetAttribute(
       mp_encode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   mp_encode_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       scores, e0, scale, inv, gram_t, weights, positions, atoms, codes, count, e_res,
-      K, W, npos, M, S, seg_len, maxcode, has_tol, snr_factor);
+      K, W, npos, M, S, seg_len, span, maxcode, has_tol, snr_factor);
   return cudaGetLastError();
 }
+
+#ifdef HSC_MP_PHASE_CLOCKS
+// copies the phase totals to `out` [6] and zeroes them
+extern "C" int hsc_mp_phase_cycles(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_phase_cycles, sizeof(g_phase_cycles));
+  if (err != cudaSuccess) return err;
+  const unsigned long long zero[6] = {0, 0, 0, 0, 0, 0};
+  return cudaMemcpyToSymbol(g_phase_cycles, zero, sizeof(zero));
+}
+#endif
 
 extern "C" const char* hsc_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

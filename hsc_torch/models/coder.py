@@ -19,10 +19,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from hsc_tpu.dictionary import MultilevelDictionary
-from hsc_tpu.oracle.mp import LevelStream, rep_quantize
-
 from ..device import resolve_device
+from ..dictionary import MultilevelDictionary
 from ..ops.decode import mp_decode_batch_torch, mp_decode_integer_batch_torch
 from ..ops.decode_integer_kernel import mp_decode_integer_batch
 from ..ops.decode_kernel import mp_decode_batch
@@ -38,6 +36,7 @@ from ..ops.encode import (
 )
 from ..ops.init_kernels import sparse_init_raw
 from ..ops.mp_kernels import mp_loop
+from ..oracle.mp import LevelStream, rep_quantize
 from ..params import LevelParams, int8_bank_tables, level_params_from_numpy
 
 
@@ -49,6 +48,17 @@ def resolve_backend(backend: str, device: torch.device) -> str:
     if backend == "cuda" and device.type != "cuda":
         raise ValueError("backend='cuda' needs a CUDA device")
     return backend
+
+
+def check_dictionary(mld) -> None:
+    """Raise unless `mld` is the port's own `MultilevelDictionary` (a JAX
+    package dictionary crosses over through `params.dictionary_from_arrays`)."""
+    if not isinstance(mld, MultilevelDictionary):
+        kind = f"{type(mld).__module__}.{type(mld).__qualname__}"
+        raise TypeError(
+            f"expected hsc_torch.dictionary.MultilevelDictionary, got {kind} "
+            "(hsc_torch.params.dictionary_from_arrays converts one)"
+        )
 
 
 def to_host(enc: EncodedBlock) -> EncodedBlock:
@@ -179,6 +189,7 @@ class ConvolutionalSparseCoder(nn.Module):
         self, mld: MultilevelDictionary, level: int = 0, backend: str = "auto", *, device
     ):
         super().__init__()
+        check_dictionary(mld)
         self.mld = mld
         self.level = level
         cfg = mld.config

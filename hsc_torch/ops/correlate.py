@@ -17,5 +17,12 @@ import torch.nn.functional as F
 def correlate_bank_torch(x: torch.Tensor, bank: torch.Tensor) -> torch.Tensor:
     """``x [B, N, C]`` against ``bank [K, W, C]`` -> scores ``[B, K, npos]``
     with ``scores[b, k, t] = sum_{u,c} x[b, t+u, c] * bank[k, u, c]``
-    (conv1d is cross-correlation: no kernel flip)."""
-    return F.conv1d(x.transpose(1, 2), bank.permute(0, 2, 1))
+    (conv1d is cross-correlation: no kernel flip).
+
+    The scores come back contiguous, so the greedy-loop kernel updates them
+    in place.  Both operands are first given the row-major strides of their
+    shapes: the transposed views have stride 1 on the channel axis, which
+    PyTorch reads as channels-last, and the conv would then return the
+    scores channels-last too."""
+    rows = torch.contiguous_format
+    return F.conv1d(x.transpose(1, 2).clone(memory_format=rows), bank.permute(0, 2, 1).clone(memory_format=rows))

@@ -7,6 +7,13 @@
 a CUDA tensor launches the kernel or raises — there is no fallback.  Unlike
 the Pallas kernel (`pallas_num_select_options`), the kernel takes every
 ``num_select >= 1`` the spec allows.
+
+On the card the kernel updates the caller's `scores0` IN PLACE: it is the
+loop state, and a copy would cost a read and a write of the whole score
+buffer (268 MB per 64-block flagship batch, 400 MB at level 1 of the
+flagship hierarchy) before every launch.  Neither encode pipeline reads an
+init after its loop; a caller that does passes a clone.  JAX arrays are
+immutable, so the JAX package has no such contract.
 """
 
 from __future__ import annotations
@@ -47,7 +54,9 @@ def mp_loop(
     num_select: int = 1,
 ) -> EncodedBlock:
     """Greedy loop of a batch -> `EncodedBlock`, bitwise the plain loop.
-    The caller's `scores0` is not modified (the kernel works on a copy)."""
+    On a CUDA tensor the kernel overwrites `scores0` with the final scores
+    (a non-contiguous `scores0` is first made contiguous, and that copy is
+    the one updated); on a CPU tensor the plain loop leaves it intact."""
     if scores0.device.type == "cpu":
         return mp_encode_from_init_torch(
             scores0, e0, scale, inv_scale, params, num_coefs=num_coefs,
@@ -66,16 +75,15 @@ def mp_loop(
     w = (lag + 1) // 2
     if int(num_select) < 1 or int(num_coefs) < 0:
         raise ValueError("num_select must be >= 1 and num_coefs >= 0")
-    # any layout: the kernel works on a contiguous copy (cuDNN may hand the
-    # init back in another memory format)
     check_tensor(scores0, "scores0", torch.float32, (b, k, npos), dev, contiguous=False)
     for name, t in (("e0", e0), ("scale", scale), ("inv_scale", inv_scale)):
         check_tensor(t, name, torch.float32, (b,), dev)
     check_tensor(params.gram_t, "gram_t", torch.float32, (k, k, lag), dev)
     check_tensor(params.weights, "weights", torch.float32, (k,), dev)
 
-    scores = torch.empty((b, k, npos), dtype=torch.float32, device=dev)
-    scores.copy_(scores0)  # loop state, updated in place by the kernel
+    # the loop state, updated in place; a copy only where cuDNN handed the
+    # init back in another memory format
+    scores = scores0.contiguous()
     positions = torch.empty((b, num_coefs), dtype=torch.int32, device=dev)
     atoms = torch.empty_like(positions)
     codes = torch.empty_like(positions)

@@ -17,10 +17,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from hsc_tpu.dictionary import MultilevelDictionary
-from hsc_tpu.oracle.mp import balanced_digits, bank_quantize_int16, rep_quantize
-
+from .config import CodecConfig
 from .device import resolve_device
+from .dictionary import MultilevelDictionary
+from .oracle.mp import balanced_digits, bank_quantize_int16, rep_quantize
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +36,16 @@ class LevelParams:
     bank_step: np.float32 | None = None
     # ordered-decode table: the signal-space representations
     rep_bank: torch.Tensor | None = None  # [K, scales[level], 1] f32
+
+
+def dictionary_from_arrays(config_json: str, dicts: list[np.ndarray]) -> MultilevelDictionary:
+    """The port's `MultilevelDictionary` from a config's JSON and the raw
+    per-level arrays (``hsc_tpu``'s ``mld.config.to_json()`` and
+    ``mld.dicts``): how a dictionary crosses over from the JAX package.
+    The arrays are copied, so the two never alias."""
+    return MultilevelDictionary(
+        CodecConfig.from_json(config_json), [np.array(d, dtype=np.float32) for d in dicts]
+    )
 
 
 def int8_bank_tables(bank_raw) -> tuple[np.ndarray, np.float32]:

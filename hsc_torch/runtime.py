@@ -2,10 +2,10 @@
 
 `CorpusEncoder` runs the codec's main path: batches of blocks through the
 pipelined device encode (CUDA kernels on a card), host bit-packing into the
-container format, and the batched integer decode.  The host code is copied
-from `hsc_tpu.runtime` (its module imports JAX), because the container bytes
-depend on it: a container written here is byte-identical to the JAX
-package's for the same streams.
+container format (`io.bitstream`, the port's copy), and the batched integer
+decode.  The host code is copied from `hsc_tpu.runtime`, because the
+container bytes depend on it: a container written here is byte-identical to
+the JAX package's for the same streams.
 
 It covers every hierarchy depth, both decode modes, and the top-only and
 distributed (`oracle.mp.to_distributed`) container forms.  The journal,
@@ -21,13 +21,12 @@ from itertools import islice
 
 import numpy as np
 
-from hsc_tpu.config import CodecConfig
-from hsc_tpu.dictionary import MultilevelDictionary
-from hsc_tpu.io.bitstream import MAGIC, VERSION, iter_blocks, pack_stream, peek_corpus_header
-from hsc_tpu.oracle.mp import LevelStream, to_distributed
-
+from .config import CodecConfig
+from .dictionary import MultilevelDictionary
+from .io.bitstream import MAGIC, VERSION, iter_blocks, pack_stream, peek_corpus_header
 from .models.coder import HierarchicalConvolutionalSparseCoder, level_streams, to_host
 from .ops.pipeline import encode_batches_pipelined, encode_hierarchical_batches_pipelined
+from .oracle.mp import LevelStream, to_distributed
 
 
 def _not_ported(what: str, item: str):

@@ -21,12 +21,18 @@ from hsc_torch.ops.encode import (
     mp_encode_from_init_torch,
     quantizer_steps,
 )
-from hsc_torch.params import level_params_from_mld
+from hsc_torch.params import dictionary_from_arrays, level_params_from_mld
 from pinned import oracle_encode_pinned
 
 # energy_res is held to the oracle, the spec: the XLA path's differs from it
 # by a few ulps on the CPU (ROADMAP Queue 3), and it is never serialized
 FIELDS = ("positions", "atoms", "codes", "count", "scale", "energy0")
+
+
+@pytest.fixture(scope="module")
+def port_mld1(mld1):
+    """The port's copy of the `mld1` fixture."""
+    return dictionary_from_arrays(mld1.config.to_json(), mld1.dicts)
 
 
 def _blocks(mld, n, seed):
@@ -40,11 +46,12 @@ def _jax_init(mld, xs):
     return np.asarray(s0), np.asarray(e0), np.asarray(peak)
 
 
-def test_init_within_tolerance_of_jax(mld1):
+def test_init_within_tolerance_of_jax(mld1, port_mld1):
     xs = _blocks(mld1, 3, seed=21)
     s0_j, e0_j, peak_j = _jax_init(mld1, xs)
-    params = level_params_from_mld(mld1, 0, "cpu")
+    params = level_params_from_mld(port_mld1, 0, "cpu")
     s0, e0, peak = encode_init_batched(torch.from_numpy(xs[:, :, None]), params.bank)
+    assert s0.is_contiguous()  # the loop kernel updates it in place, with no copy
     for b in range(3):
         np.testing.assert_allclose(s0[b].numpy(), s0_j[b], rtol=0, atol=1e-5 * max(peak_j[b], 1e-30))
     np.testing.assert_allclose(e0.numpy(), e0_j, rtol=1e-5)
@@ -55,14 +62,14 @@ def test_init_within_tolerance_of_jax(mld1):
     "ns,tol",
     [(1, None), (4, None), (8, None), (3, None), (1, 12.0), (8, 12.0)],
 )
-def test_loop_bitwise_vs_xla_pallas_oracle(mld1, ns, tol):
+def test_loop_bitwise_vs_xla_pallas_oracle(mld1, port_mld1, ns, tol):
     """Greedy loop with JAX's init injected: bitwise the XLA path, the Pallas
     kernel (interpret mode, for the num_select it supports) and the oracle."""
     cfg = mld1.config
     xs = _blocks(mld1, 3, seed=31)
     s0, e0, peak = _jax_init(mld1, xs)
     scale, inv = quantizer_steps(peak, cfg.amp_bits)
-    params = level_params_from_mld(mld1, 0, "cpu")
+    params = level_params_from_mld(port_mld1, 0, "cpu")
     got = mp_encode_from_init_torch(
         *(torch.tensor(a) for a in (s0, e0, scale, inv)), params, num_coefs=cfg.num_coefs[0],
         amp_bits=cfg.amp_bits, tolerance_snr=tol, num_select=ns,
@@ -104,14 +111,14 @@ def test_pallas_options_cover_the_loop_cases():
     assert pallas_num_select_options(1009, 16) == (1, 4, 8)
 
 
-def test_loop_leaves_scores0_intact_and_dispatch_on_cpu(mld1):
+def test_loop_leaves_scores0_intact_and_dispatch_on_cpu(mld1, port_mld1):
     """`mp_loop` on CPU tensors is the plain loop (no kernel launch), and
     neither touches the caller's init."""
     cfg = mld1.config
     xs = _blocks(mld1, 2, seed=41)
     s0, e0, peak = _jax_init(mld1, xs)
     scale, inv = quantizer_steps(peak, cfg.amp_bits)
-    params = level_params_from_mld(mld1, 0, "cpu")
+    params = level_params_from_mld(port_mld1, 0, "cpu")
     args = [torch.tensor(a) for a in (s0, e0, scale, inv)]
     kw = dict(num_coefs=cfg.num_coefs[0], amp_bits=cfg.amp_bits, num_select=4)
     before = mp_kernels.LAUNCHES

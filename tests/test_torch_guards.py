@@ -1,7 +1,10 @@
-"""Guards of the port: it never imports JAX, never drifts to the CPU, never
-falls back from a kernel, and refuses what it does not run yet."""
+"""Guards of the port: it never imports JAX or the JAX package, never drifts
+to the CPU, never falls back from a kernel, and refuses what it does not run
+yet."""
 
+import ast
 import dataclasses
+import glob
 import os
 import subprocess
 import sys
@@ -10,20 +13,31 @@ import textwrap
 import pytest
 import torch
 
-from hsc_tpu import MultilevelDictionary, SignalGenerator, make_test_config
-
 import hsc_torch._build
+from hsc_torch import MultilevelDictionary, SignalGenerator, make_test_config
 from hsc_torch.device import resolve_device
+from hsc_torch.models import HierarchicalConvolutionalSparseCoder
 from hsc_torch.ops import decode_integer_kernel, decode_kernel, init_kernels, mp_kernels
+from hsc_torch.params import dictionary_from_arrays
 from hsc_torch.runtime import CorpusEncoder
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(scope="module")
+def port_mld1(mld1):
+    return dictionary_from_arrays(mld1.config.to_json(), mld1.dicts)
+
+
+@pytest.fixture(scope="module")
+def port_mld2(mld2):
+    return dictionary_from_arrays(mld2.config.to_json(), mld2.dicts)
+
+
 def test_port_never_imports_jax():
     """A fresh interpreter imports the port and runs tiny CPU encodes and
-    decodes (one level; two levels, ordered, distributed) without JAX ever
-    entering sys.modules."""
+    decodes (one level; two levels, ordered, distributed) without JAX or any
+    module of the JAX package `hsc_tpu` ever entering sys.modules."""
     code = textwrap.dedent(
         """
         import sys
@@ -41,6 +55,8 @@ def test_port_never_imports_jax():
                                distributed=True)
         assert codec2.decode(codec2.encode(xs)).shape == (2, 256)
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+        loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "hsc_tpu"))
+        assert not loaded, loaded
         print("ok")
         """
     )
@@ -54,6 +70,39 @@ def test_port_never_imports_jax():
     assert proc.stdout.strip().endswith("ok")
 
 
+def _imported_roots(path):
+    """Top-level package names of every import statement in a file."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", sorted(
+    os.path.relpath(p, REPO)
+    for p in glob.glob(os.path.join(REPO, "hsc_torch", "**", "*.py"), recursive=True)
+) + ["chip_smoke.py"])
+def test_no_jax_package_import_in_source(path):
+    """No file of the port and no line of chip_smoke.py imports `hsc_tpu`,
+    `jax` or `jaxlib`, at module level or inside a function."""
+    assert not _imported_roots(os.path.join(REPO, path)) & {"hsc_tpu", "jax", "jaxlib"}
+
+
+def test_jax_package_dictionary_is_refused(mld1, port_mld1):
+    """The port's entry points take the port's own dictionary; a JAX package
+    one crosses over through `dictionary_from_arrays`."""
+    with pytest.raises(TypeError, match="dictionary_from_arrays"):
+        CorpusEncoder(mld1, device="cpu")
+    with pytest.raises(TypeError, match="dictionary_from_arrays"):
+        HierarchicalConvolutionalSparseCoder(mld1, device="cpu")
+    assert CorpusEncoder(port_mld1, device="cpu").cfg.to_json() == mld1.config.to_json()
+
+
 def test_cuda_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
@@ -62,9 +111,9 @@ def test_cuda_without_a_card_raises(monkeypatch):
         CorpusEncoder(MultilevelDictionary.generate(make_test_config(), seed=7), device="cuda")
 
 
-def test_backend_cuda_needs_a_cuda_device(mld1):
+def test_backend_cuda_needs_a_cuda_device(port_mld1):
     with pytest.raises(ValueError, match="CUDA device"):
-        CorpusEncoder(mld1, device="cpu", backend="cuda")
+        CorpusEncoder(port_mld1, device="cpu", backend="cuda")
 
 
 def test_missing_nvcc_raises(monkeypatch):
@@ -79,18 +128,18 @@ def _launches():
             decode_kernel.LAUNCHES)
 
 
-def test_cpu_path_launches_no_kernel(mld1, mld2):
+def test_cpu_path_launches_no_kernel(port_mld1, port_mld2):
     """CPU tensors take the plain versions: the four launch counters stay
     put through single-level and 2-level (int8 init) encodes and decodes in
     both modes."""
     before = _launches()
-    for mld in (mld1, mld2):
+    for mld in (port_mld1, port_mld2):
         xs = SignalGenerator(mld, rates=4e-3).generate_signals(2, mld.config.block_size, seed=71)
         for mode in ("integer", "ordered"):
             cfg = dataclasses.replace(mld.config, decode_mode=mode)
             codec = CorpusEncoder(MultilevelDictionary.generate(cfg, seed=7), device="cpu", backend="auto")
             codec.decode(codec.encode(xs))
-    assert mld2.config.hier_init == "int8"
+    assert port_mld2.config.hier_init == "int8"
     assert _launches() == before
     if not torch.cuda.is_available():
         assert before == (0, 0, 0, 0)
@@ -100,7 +149,8 @@ def test_cpu_path_launches_no_kernel(mld1, mld2):
     "what",
     ["journal_dir", "target_bps", "mesh", "index", "indices"],
 )
-def test_unported_options_raise(mld1, tmp_path, what):
+def test_unported_options_raise(port_mld1, tmp_path, what):
+    mld1 = port_mld1
     cfg = mld1.config
     xs = SignalGenerator(mld1, rates=4e-3).generate_signals(1, cfg.block_size, seed=73)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -56,12 +56,17 @@ from hsc_torch.ops.encode import (
     feature_map_int,
 )
 from hsc_torch.ops.pipeline import encode_hierarchical_batches_pipelined
-from hsc_torch.params import level_params_from_mld, level_params_from_numpy
+from hsc_torch.params import dictionary_from_arrays, level_params_from_mld, level_params_from_numpy
 from hsc_torch.runtime import CorpusEncoder
 from pinned import oracle_hierarchical_pinned
 
 # the 3-level geometry of tests/test_three_level.py
 CFG3 = CodecConfig(counts=(10, 6, 4), scales=(12, 36, 90), num_coefs=(96, 48, 24), block_size=1024)
+
+
+def _port(mld):
+    """The port's copy of a JAX package dictionary."""
+    return dictionary_from_arrays(mld.config.to_json(), mld.dicts)
 
 
 def _inject_jax_init(monkeypatch, module):
@@ -247,7 +252,7 @@ def test_hier_coder_matches_jax_and_pinned_oracle(monkeypatch, mld2, ns):
     jc = JaxCoder(mld, backend="jax")
     ref = jc.encode_batch(xs)
     _inject_jax_init(monkeypatch, hsc_torch.models.coder)
-    tc = HierarchicalConvolutionalSparseCoder(mld, device="cpu")
+    tc = HierarchicalConvolutionalSparseCoder(_port(mld), device="cpu")
     got = tc.encode_batch(xs)
     for b in range(4):
         pinned = oracle_hierarchical_pinned(xs[b], mld)
@@ -271,7 +276,7 @@ def test_hier_coder_f32_hier_init(monkeypatch, mld2):
     mld = MultilevelDictionary.generate(cfg, seed=11)
     xs = _signals(mld, 3, seed=33)
     _inject_jax_init(monkeypatch, hsc_torch.models.coder)
-    tc = HierarchicalConvolutionalSparseCoder(mld, device="cpu")
+    tc = HierarchicalConvolutionalSparseCoder(_port(mld), device="cpu")
     assert not tc.coders[1].mp.int8_init
     got = tc.encode_batch(xs)
     for b in range(3):
@@ -286,7 +291,7 @@ def test_three_level_coder_matches_jax(monkeypatch):
     jc = JaxCoder(mld, backend="jax")
     ref = jc.encode_batch(xs)
     _inject_jax_init(monkeypatch, hsc_torch.models.coder)
-    tc = HierarchicalConvolutionalSparseCoder(mld, device="cpu")
+    tc = HierarchicalConvolutionalSparseCoder(_port(mld), device="cpu")
     got = tc.encode_batch(xs)
     for b in range(2):
         for level in range(3):
@@ -307,13 +312,13 @@ def test_level_params_int8_tables_from_jax_arrays(mld2):
         bank_step=np.asarray(mp.bank_step), rep_bank=np.asarray(jc._rep_banks[1]),
         n_raw=cfg.counts[1], singleton_weight=cfg.singleton_weight, device="cpu",
     )
-    b = level_params_from_mld(mld2, 1, "cpu")
+    b = level_params_from_mld(_port(mld2), 1, "cpu")
     for f in ("bank", "gram_t", "weights", "bank_planes", "rep_bank"):
         x, y = getattr(a, f), getattr(b, f)
         assert x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y), f
     assert a.bank_planes.dtype == torch.int8 and a.bank_planes.shape == (cfg.counts[1], 33, 12, 2)
     assert a.bank_step == b.bank_step and a.bank_step.dtype == np.float32
-    assert level_params_from_mld(mld2, 0, "cpu").bank_planes is None
+    assert level_params_from_mld(_port(mld2), 0, "cpu").bank_planes is None
 
 
 # ---- the level pipeline ----------------------------------------------------
@@ -325,7 +330,7 @@ def test_pipeline_equals_serial(mld2, window):
     serial per-batch encode, whatever the window."""
     xs = _signals(mld2, 7, seed=37)
     batches = [xs[i : i + 2][:, :, None] for i in range(0, 7, 2)]
-    coder = HierarchicalConvolutionalSparseCoder(mld2, device="cpu")
+    coder = HierarchicalConvolutionalSparseCoder(_port(mld2), device="cpu")
     outs = encode_hierarchical_batches_pipelined(batches, coder, window=window)
     assert [len(o) for o in outs] == [4, 4]
     for i, xb in enumerate(batches):
@@ -350,7 +355,7 @@ def test_hier_container_byte_identical_to_jax(monkeypatch, mld2, ns, distributed
     xs = _signals(mld, 5, seed=41)
     ref = JaxCorpusEncoder(mld, backend="jax", batch_size=2, distributed=distributed).encode(xs)
     _inject_jax_init(monkeypatch, hsc_torch.ops.pipeline)
-    codec = CorpusEncoder(mld, device="cpu", batch_size=2, distributed=distributed)
+    codec = CorpusEncoder(_port(mld), device="cpu", batch_size=2, distributed=distributed)
     blob = codec.encode(xs)
     assert blob == ref
     rows = codec.decode(blob)
@@ -367,9 +372,9 @@ def test_distributed_decodes_like_top_only(mld2):
     for mode in ("integer", "ordered"):
         mld = MultilevelDictionary.generate(dataclasses.replace(mld2.config, decode_mode=mode), seed=11)
         cfg = mld.config
-        codec = CorpusEncoder(mld, device="cpu", batch_size=3)
+        codec = CorpusEncoder(_port(mld), device="cpu", batch_size=3)
         top = codec.encode(xs)
-        dist = CorpusEncoder(mld, device="cpu", batch_size=3, distributed=True).encode(xs)
+        dist = CorpusEncoder(_port(mld), device="cpu", batch_size=3, distributed=True).encode(xs)
         rows, rows_d = codec.decode(top), codec.decode(dist)
         _, blocks = unpack_corpus(dist)
         assert any(len(streams) > 1 for streams in blocks)
@@ -390,7 +395,8 @@ def test_decode_chunks_mixed_and_repeated_levels(mld2):
     streams of one level) decode as the JAX package's chunked decoder."""
     cfg = mld2.config
     xs = _signals(mld2, 4, seed=47)
-    streams = HierarchicalConvolutionalSparseCoder(mld2, device="cpu").encode_batch(xs)
+    port_mld = _port(mld2)
+    streams = HierarchicalConvolutionalSparseCoder(port_mld, device="cpu").encode_batch(xs)
     blocks = [
         [(1, streams[0][1])],
         to_distributed(cfg, streams[2][1]),
@@ -398,10 +404,10 @@ def test_decode_chunks_mixed_and_repeated_levels(mld2):
         [(1, streams[1][1])],
     ]
     jax_codec = JaxCorpusEncoder(mld2, backend="jax", batch_size=2)
-    codec = CorpusEncoder(mld2, device="cpu", batch_size=2)
+    codec = CorpusEncoder(port_mld, device="cpu", batch_size=2)
     for mode in ("integer", "ordered"):
         want = list(jax_codec._decode_chunks(cfg, blocks, mode, cfg.rep_bits))
-        got = list(codec._decode_chunks(cfg, iter(blocks), mode, cfg.rep_bits))
+        got = list(codec._decode_chunks(port_mld.config, iter(blocks), mode, cfg.rep_bits))
         assert len(got) == len(want) == 2
         for g, w in zip(got, want):
             assert g.tobytes() == np.asarray(w).tobytes()

@@ -5,8 +5,9 @@ Every test runs twice: on the CPU, where the kernel wrappers take the plain
 versions (so the plain versions meet the oracle on every geometry here), and
 on the card, where they launch the CUDA kernels.  The card's cases need an
 NVIDIA GPU and the CUDA toolkit (`nvcc`): they are marked `cuda` and skip on
-a host without a card.  This file imports no JAX, so it also runs on a
-machine that has none:
+a host without a card.  The oracle is the port's own copy
+(`hsc_torch.oracle`); this file imports no JAX and nothing of the JAX
+package, so it also runs on a machine that has neither:
 
     python -m pytest tests/test_torch_kernels.py -q --noconftest -p no:cacheprovider
 """
@@ -15,9 +16,9 @@ import numpy as np
 import pytest
 import torch
 
-from hsc_tpu import MultilevelDictionary, SignalGenerator, make_test_config
-from hsc_tpu.dictionary import bank_gram
-from hsc_tpu.oracle.mp import (
+from hsc_torch import MultilevelDictionary, SignalGenerator, make_test_config
+from hsc_torch.dictionary import bank_gram
+from hsc_torch.oracle.mp import (
     LevelStream,
     balanced_digits,
     bank_quantize_int16,
@@ -83,9 +84,11 @@ def test_mp_kernel_bitwise_plain_and_oracle(device, geom):
     xs, params, init = _init(mld, 5, 9, device)
     kw = dict(num_coefs=nc[0], amp_bits=cfg.amp_bits, tolerance_snr=tol, num_select=ns)
     s0_before = init[0].clone()
-    got = mp_kernels.mp_loop(*init, params, **kw)
+    s0_kernel = init[0].clone()  # the kernel updates its scores in place
+    got = mp_kernels.mp_loop(s0_kernel, *init[1:], params, **kw)
     ref = mp_encode_from_init_torch(*init, params, **kw)
-    assert torch.equal(init[0], s0_before)
+    assert torch.equal(init[0], s0_before)  # the plain loop works on a copy
+    assert torch.equal(s0_kernel, s0_before) == (device.type == "cpu")
     for x, y in zip(got, ref):
         assert torch.equal(x, y)
     assert int(got.count[0]) == 0
@@ -125,7 +128,7 @@ def test_mp_kernel_random_geometry(device, seed):
     scale, inv = quantizer_steps(peak.cpu().numpy(), amp_bits)
     init = (s0, e0, torch.from_numpy(scale).to(device), torch.from_numpy(inv).to(device))
     kw = dict(num_coefs=m, amp_bits=amp_bits, tolerance_snr=tol, num_select=ns)
-    got = mp_kernels.mp_loop(*init, params, **kw)
+    got = mp_kernels.mp_loop(s0.clone(), *init[1:], params, **kw)
     ref = mp_encode_from_init_torch(*init, params, **kw)
     for x, y in zip(got, ref):
         assert torch.equal(x, y)
@@ -139,6 +142,102 @@ def test_mp_kernel_random_geometry(device, seed):
     assert np.array_equal(got.positions[0, :n_ev].cpu().numpy(), o.positions)
     assert np.array_equal(got.atoms[0, :n_ev].cpu().numpy(), o.atoms)
     assert np.array_equal(got.codes[0, :n_ev].cpu().numpy(), o.codes)
+
+
+def _loop_vs_plain_and_oracle(device, bank, n_raw, sw, s0, e0, amp_bits=16, **kw):
+    """Run the loop kernel (on a copy of `s0`) and the plain loop on one
+    init, hold them bitwise, and every block bitwise the oracle; returns
+    the kernel's result on the host."""
+    k, w = bank.shape[0], bank.shape[1]
+    gram = bank_gram(bank)
+    params = level_params_from_numpy(
+        bank, np.ascontiguousarray(gram.transpose(1, 0, 2)), n_raw=n_raw,
+        singleton_weight=sw, device=device,
+    )
+    s0 = torch.as_tensor(s0, dtype=torch.float32).to(device)
+    e0 = torch.as_tensor(e0, dtype=torch.float32).to(device)
+    scale, inv = quantizer_steps(s0.abs().amax(dim=(1, 2)).cpu().numpy(), amp_bits)
+    init = (s0, e0, torch.from_numpy(scale).to(device), torch.from_numpy(inv).to(device))
+    kw = dict(kw, amp_bits=amp_bits)
+    got = mp_kernels.mp_loop(s0.clone(), *init[1:], params, **kw)
+    ref = mp_encode_from_init_torch(*init, params, **kw)
+    for x, y in zip(got, ref):
+        assert torch.equal(x, y)
+    got = [a.cpu().numpy() for a in got]
+    for b in range(s0.shape[0]):
+        o = mp_encode(
+            np.zeros((s0.shape[2] + w - 1, 1), np.float32), bank, gram,
+            scores0=s0[b].cpu().numpy(), energy0=float(e0[b]), singleton_weight=sw,
+            n_raw=n_raw, **kw,
+        )
+        n_ev = int(got[3][b])
+        assert n_ev == o.positions.shape[0]
+        for a, want in zip(got[:3], (o.positions, o.atoms, o.codes)):
+            assert np.array_equal(a[b, :n_ev], want)
+        assert got[6][b] == np.float32(o.energy_res)
+    return got
+
+
+def _peaked_scores(rng, k, npos, peaks, noise=0.01):
+    """Small noise scores with `peaks` ``{position: value}`` on atom 1."""
+    s0 = (rng.standard_normal((1, k, npos)) * noise).astype(np.float32)
+    for t, v in peaks.items():
+        s0[0, 1, t] = v
+    return s0
+
+
+# the sweep's edge cases: S candidates decided in one pass (guard, budget
+# and SNR stop mid-sweep), S past the 32 lanes that take the candidates,
+# npos not a multiple of 128, K above 64, and the flagship hierarchy's
+# level-1 geometry
+SWEEP_CASES = ["guard", "budget", "snr", "S1", "S3", "S8", "S16", "S32", "S48", "level1"]
+
+
+@pytest.mark.parametrize("case", SWEEP_CASES)
+def test_mp_kernel_sweep_edge_cases(device, case):
+    rng = np.random.default_rng(SWEEP_CASES.index(case))
+    if case in ("guard", "budget", "snr"):
+        k, w, npos, ns = 6, 16, 8 * 128 - 40, 8
+        bank = rng.standard_normal((k, w, 1)).astype(np.float32)
+        bank /= np.linalg.norm(bank, axis=(1, 2), keepdims=True)
+        if case == "guard":
+            # segment 0's peak and segment 1's lie 3 apart (< 2W-1 = 31):
+            # the guard rejects the second, and segment 2's comes next
+            peaks = {125: 2.0, 128: 1.9, 300: 1.5, 700: 1.4}
+            got = _loop_vs_plain_and_oracle(
+                device, bank, k, 1.0, _peaked_scores(rng, k, npos, peaks), [50.0],
+                num_coefs=40, num_select=ns,
+            )
+            assert list(got[0][0, :2]) == [125, 300]
+        elif case == "budget":
+            peaks = {64 + 128 * j: 1.0 + 0.1 * j for j in range(8)}
+            got = _loop_vs_plain_and_oracle(
+                device, bank, k, 1.0, _peaked_scores(rng, k, npos, peaks), [50.0],
+                num_coefs=5, num_select=ns,
+            )
+            assert got[3][0] == 5 and list(got[0][0]) == [64 + 128 * j for j in range(5)]
+        else:
+            # e_res falls by ~s^2 = 2.25 per accept from 20: past the
+            # threshold 20 * 10^(-tol/10) = 12 at the 4th of 8 candidates
+            peaks = {64 + 128 * j: 1.5 for j in range(8)}
+            got = _loop_vs_plain_and_oracle(
+                device, bank, k, 1.0, _peaked_scores(rng, k, npos, peaks, noise=1e-4), [20.0],
+                num_coefs=40, num_select=ns, tolerance_snr=float(-10 * np.log10(0.6)),
+            )
+            assert got[3][0] == 4
+        return
+    if case == "level1":
+        k, w, n_raw, sw, n, nc, ns = 96, 65, 32, 0.9, 16353, 192, 8
+    else:
+        k, w, n_raw, sw, n, nc, ns = 80, 16, 48, 0.5, 3001, 300, int(case[1:])
+    bank = rng.standard_normal((k, w, 1)).astype(np.float32)
+    bank /= np.linalg.norm(bank, axis=(1, 2), keepdims=True)
+    xs = rng.standard_normal((2, n)).astype(np.float32)
+    s0, e0, _ = encode_init_batched(torch.from_numpy(xs[:, :, None]).to(device), torch.from_numpy(bank).to(device))
+    npos = n - w + 1
+    assert npos % 128 != 0
+    got = _loop_vs_plain_and_oracle(device, bank, n_raw, sw, s0, e0, num_coefs=nc, num_select=ns)
+    assert (got[3] > 0).all()
 
 
 @pytest.mark.parametrize("seed", range(6))

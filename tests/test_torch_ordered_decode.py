@@ -21,6 +21,7 @@ from hsc_tpu.oracle.mp import LevelStream, mp_decode
 from hsc_torch.models import HierarchicalConvolutionalSparseCoder
 from hsc_torch.ops import decode_kernel
 from hsc_torch.ops.decode import mp_decode_batch_torch
+from hsc_torch.params import dictionary_from_arrays
 
 
 def _random_batch(rng, b, m, n, k, w):
@@ -90,7 +91,9 @@ def test_coder_ordered_reconstruct_matches_jax_and_oracle(mld1, mld2, levels):
     )
     cfg = mld.config
     xs = SignalGenerator(mld, rates=2e-3).generate_signals(4, cfg.block_size, seed=51)
-    tc = HierarchicalConvolutionalSparseCoder(mld, device="cpu")
+    tc = HierarchicalConvolutionalSparseCoder(
+        dictionary_from_arrays(cfg.to_json(), mld.dicts), device="cpu"
+    )
     top = [s[-1] for s in tc.encode_batch(xs)]
     got = tc.reconstruct_batch(top)
     assert got.tobytes() == JaxCoder(mld, backend="jax").reconstruct_batch(top).tobytes()

@@ -19,8 +19,13 @@ from hsc_tpu.runtime import CorpusEncoder as JaxCorpusEncoder
 import hsc_torch.models.coder
 import hsc_torch.ops.pipeline
 from hsc_torch.models import HierarchicalConvolutionalSparseCoder
-from hsc_torch.params import level_params_from_mld, level_params_from_numpy
+from hsc_torch.params import dictionary_from_arrays, level_params_from_mld, level_params_from_numpy
 from hsc_torch.runtime import CorpusEncoder
+
+
+def _port(mld):
+    """The port's copy of a JAX package dictionary."""
+    return dictionary_from_arrays(mld.config.to_json(), mld.dicts)
 
 
 def _inject_jax_init(monkeypatch, module=hsc_torch.ops.pipeline):
@@ -40,7 +45,7 @@ def test_container_byte_identical_to_jax(monkeypatch, ns):
     xs[3] = 0.0
     ref = JaxCorpusEncoder(mld, backend="jax", batch_size=2).encode(xs)
     _inject_jax_init(monkeypatch)
-    codec = CorpusEncoder(mld, device="cpu", batch_size=2)
+    codec = CorpusEncoder(_port(mld), device="cpu", batch_size=2)
     blob = codec.encode(xs)
     assert blob == ref
     rows = codec.decode(blob)
@@ -58,7 +63,7 @@ def test_coder_classes_match_jax(monkeypatch, mld1):
     jc = JaxCoder(mld1, backend="jax")
     ref = [s[0] for s in jc.encode_batch(xs)]
     _inject_jax_init(monkeypatch, hsc_torch.models.coder)
-    tc = HierarchicalConvolutionalSparseCoder(mld1, device="cpu")
+    tc = HierarchicalConvolutionalSparseCoder(_port(mld1), device="cpu")
     got = [s[0] for s in tc.encode_batch(xs)]
     for a, b in zip(got, ref):
         for f in ("positions", "atoms", "codes"):
@@ -72,7 +77,7 @@ def test_uninjected_encode_roundtrip(mld1):
     decoder, with the codec's usual reconstruction quality."""
     cfg = mld1.config
     xs = SignalGenerator(mld1, rates=4e-3).generate_signals(3, cfg.block_size, seed=63)
-    codec = CorpusEncoder(mld1, device="cpu", backend="torch")
+    codec = CorpusEncoder(_port(mld1), device="cpu", backend="torch")
     blob = codec.encode(xs)
     rows = codec.decode(blob)
     assert rows.tobytes() == JaxCorpusEncoder(mld1, backend="jax").decode(blob).tobytes()
@@ -93,7 +98,7 @@ def test_level_params_from_jax_arrays(mld1):
         rep_q=np.asarray(rep_q), rep_step=step, n_raw=cfg.counts[0],
         singleton_weight=1.0, device="cpu",
     )
-    b = level_params_from_mld(mld1, 0, "cpu")
+    b = level_params_from_mld(_port(mld1), 0, "cpu")
     for f in ("bank", "gram_t", "weights", "rep_q"):
         x, y = getattr(a, f), getattr(b, f)
         assert x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y), f
