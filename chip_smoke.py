@@ -34,10 +34,14 @@ At the flagship hierarchy of `bench.py:257-262` (levels of 64 and 32 raw
 atoms, scales 32 and 96, 512 and 192 coefficients, num_select=8, the int8
 level-1 init; dictionary seed 9, signals seed 5) it then:
 
-  7. holds the sparse-init kernel bitwise against its plain dense version on
-     the level-1 maps of a real 64-block level-0 encode, against
-     `oracle.int8_init_scores` on 2 blocks, and on an adversarial batch
-     (an all-zero block, duplicate cells, cells at the four-digit bound);
+  7. holds the int8-init kernels (events in; the whole score buffer, e0 and
+     peak out) against their plain route (the dense hand-off map, then the
+     dense init) on the level-0 events of a real 64-block encode — scores
+     and peak bitwise, e0 within 1e-6 relative — and against
+     `oracle.int8_init_scores` on 2 blocks, and on an adversarial batch of
+     4096 events per block (an all-zero block, a cell of 64 events, cells at
+     the four-digit bound from large codes, events past `count`, at
+     N - W < pos < N and off the map);
   8. holds the ordered-decode kernel bitwise against its plain version on
      64 top streams and against `oracle.hierarchical_decode` on every block;
   9. drives the hierarchy end to end on 128 blocks through CorpusEncoder in
@@ -45,10 +49,13 @@ level-1 init; dictionary seed 9, signals seed 5) it then:
      give identical bytes, level 1 is bitwise the oracle's greedy loop on
      the oracle's int8 init on 2 blocks, decodes are bitwise the oracle's,
      distributed rows are the per-level oracle sums, backend='torch' gives
-     the same containers and rows, and all four kernels were launched;
- 10. times the sparse-init, ordered-decode and level-1 greedy-loop kernels
+     the same containers and rows, all four kernels were launched, and the
+     CUDA path never called the dense hand-off map (`feature_map_int`) or
+     the torch epilogue (`int8_assemble_batched`);
+ 10. times the int8-init, ordered-decode and level-1 greedy-loop kernels
      against their plain versions and the hierarchical codec on both
-     backends (in turns), and profiles one hierarchical encode.
+     backends (in turns), and profiles one hierarchical encode, with the
+     device time of the level hand-offs split out.
 
 Every phase is fatal on failure.  The NumPy spec it checks against is the
 port's own copy (`hsc_torch.oracle`, `hsc_torch.io`); the script fails if
@@ -63,6 +70,7 @@ device.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -120,7 +128,9 @@ def cuda_ms(fn, reps: int) -> float:
 def device_profile(fn, trace_path: str) -> dict:
     """Run `fn` under torch.profiler and read the device timeline back from
     its chrome trace: host wall ms, device-busy ms (union of kernel, memcpy
-    and memset intervals), and device ms per kernel name."""
+    and memset intervals), device ms per kernel name, and device ms per
+    `torch.profiler.record_function` range (the kernels, copies and fills
+    launched inside it, matched by their correlation ids)."""
     import os
 
     import torch
@@ -135,18 +145,32 @@ def device_profile(fn, trace_path: str) -> dict:
     prof.export_chrome_trace(trace_path)
     with open(trace_path) as f:
         events = json.load(f).get("traceEvents", [])
-    spans, by_name = [], {}
+    ranges = {}
+    for e in events:
+        if e.get("cat") == "user_annotation" and "dur" in e:
+            ranges.setdefault(e["name"], []).append((float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+    launched = {}  # correlation id -> the range its launch lay in
+    for e in events:
+        if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {}):
+            ts = float(e["ts"])
+            for name, spans_ in ranges.items():
+                if any(lo <= ts <= hi for lo, hi in spans_):
+                    launched[e["args"]["correlation"]] = name
+    spans, by_name, by_range = [], {}, {name: 0.0 for name in ranges}
     for e in events:
         if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e:
             spans.append((float(e["ts"]), float(e["ts"]) + float(e["dur"])))
             key = e["name"].replace("(anonymous namespace)::", "").split("(")[0][-40:]
             by_name[key] = by_name.get(key, 0.0) + float(e["dur"]) / 1e3
+            name = launched.get(e.get("args", {}).get("correlation"))
+            if name is not None:
+                by_range[name] += float(e["dur"]) / 1e3
     busy, end = 0.0, float("-inf")
     for lo, hi in sorted(spans):
         if hi > end:
             busy += hi - max(lo, end)
             end = hi
-    return {"wall_ms": wall_ms, "busy_ms": busy / 1e3, "by_name": by_name}
+    return {"wall_ms": wall_ms, "busy_ms": busy / 1e3, "by_name": by_name, "by_range": by_range}
 
 
 def fresh_ms(make, fn, reps: int) -> float:
@@ -211,9 +235,42 @@ def stats(v, unit: str, fmt: str = ".4f") -> str:
 def profile_line(what: str, fn) -> str:
     prof = device_profile(fn, f"build/chip_smoke/trace_{what.replace(' ', '_')}.json")
     top = sorted(prof["by_name"].items(), key=lambda kv: -kv[1])[:6]
+    ranges = "".join(f"; device ms in {k}: {v:.3f}" for k, v in sorted(prof["by_range"].items()))
     return (f"profiled {what}: wall {prof['wall_ms']:.2f} ms, device busy {prof['busy_ms']:.2f} ms "
             f"(idle {100 * (1 - prof['busy_ms'] / prof['wall_ms']):.1f}%); device ms by name: "
-            + ", ".join(f"{k} {v:.3f}" for k, v in top))
+            + ", ".join(f"{k} {v:.3f}" for k, v in top) + ranges)
+
+
+def bits_equal(a, b) -> bool:
+    """Float32 tensors equal bit for bit (+0.0 and -0.0 differ)."""
+    import torch
+
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+@contextlib.contextmanager
+def counting_calls(module, names):
+    """Count the calls of `module`'s functions `names` made through any
+    module of the port that holds them, while the context is open."""
+    counts = dict.fromkeys(names, 0)
+    originals = {n: getattr(module, n) for n in names}
+
+    def counted(n):
+        def fn(*args, **kwargs):
+            counts[n] += 1
+            return originals[n](*args, **kwargs)
+        return fn
+
+    patched = [(mod, n) for mod in list(sys.modules.values())
+               if getattr(mod, "__name__", "").split(".")[0] == "hsc_torch"
+               for n in names if getattr(mod, n, None) is originals[n]]
+    for mod, n in patched:
+        setattr(mod, n, counted(n))
+    try:
+        yield counts
+    finally:
+        for mod, n in patched:
+            setattr(mod, n, originals[n])
 
 
 def exact_correlation(x: np.ndarray, bank: np.ndarray) -> np.ndarray:
@@ -354,9 +411,9 @@ def sweep_edge_cases(dev) -> float:
 
 
 def hierarchy(dev, card: str):
-    """Phases 7-10: the two new kernels and the hierarchy end to end at the
-    flagship hierarchy.  Returns the kernels' JSON entries and the phase-9
-    launch counts of all four kernels."""
+    """Phases 7-10: the int8-init and ordered-decode kernels and the
+    hierarchy end to end at the flagship hierarchy.  Returns their JSON
+    entries and the phase-9 launch counts of all four kernels."""
     import dataclasses
 
     import torch
@@ -364,11 +421,11 @@ def hierarchy(dev, card: str):
 
     from hsc_torch import MultilevelDictionary, SignalGenerator, make_test_config
     from hsc_torch.ops import decode_integer_kernel, decode_kernel, init_kernels, mp_kernels
+    from hsc_torch.ops import encode as encode_ops
     from hsc_torch.ops.decode import mp_decode_batch_torch
     from hsc_torch.ops.encode import (
-        encode_init_int_batched,
-        encode_init_int_raw_torch,
         feature_map_int,
+        int8_init_from_events_torch,
         mp_encode_from_init_torch,
         quantizer_steps,
     )
@@ -397,15 +454,29 @@ def hierarchy(dev, card: str):
     log(f"[7] hierarchy: level 1 takes int32 maps [{BATCH}, {cfg.seq_len(1)}, {mld.num_atoms(0)}] "
         f"-> scores [{BATCH}, {mld.num_atoms(1)}, {cfg.num_positions(1)}], W={cfg.window_sizes[1]}")
 
-    # ---- 7. sparse-init kernel vs plain version vs oracle -----------------
+    # ---- 7. int8-init kernels vs plain route vs oracle ---------------------
     enc0 = coder.coders[0].mp.compute_coefficients_batch(torch.from_numpy(xs[:BATCH]).to(dev))
-    m_int, ps = coder.handoff(0, enc0)
-    init_args = (m_int, ps, mp1.bank_planes, mp1.bank_step)
-    raw_k, peak_k = init_kernels.sparse_init_raw(*init_args)
-    raw_p, peak_p = encode_init_int_raw_torch(*init_args)
-    check(torch.equal(raw_k, raw_p) and torch.equal(peak_k, peak_p), "sparse_init kernel != plain")
-    init_err = max_abs_diff([raw_k, peak_k], [raw_p, peak_p])
-    s0_1, e0_1, peak_1 = encode_init_int_batched(*init_args, raw=init_kernels.sparse_init_raw)
+    *ev0, ps, n_map = coder.handoff(0, enc0)
+    c_map, w1 = mld.num_atoms(0), cfg.window_sizes[1]
+    init_args = (*ev0, ps, mp1.bank_planes, mp1.bank_step)
+
+    def init_kernel(args):
+        return init_kernels.int8_init(*args, n_map=n_map, planes_cnw=mp1.init_planes)
+
+    def init_plain(args):
+        return int8_init_from_events_torch(*args, n_map=n_map)
+
+    def init_case(args, what):
+        got, ref = init_kernel(args), init_plain(args)
+        check(bits_equal(got[0], ref[0]) and bits_equal(got[2], ref[2]),
+              f"int8 init kernels != plain route (scores or peak) on {what}")
+        rel = float(((got[1].double() - ref[1].double()).abs() / ref[1].double().abs().clamp_min(1e-300)).max())
+        check(rel <= 1e-6, f"int8 init e0 off the plain route by {rel:.3g} relative on {what}")
+        # max_abs_err covers what is held bitwise; e0's error is relative
+        return got, max_abs_diff([got[0], got[2]], [ref[0], ref[2]]), rel
+
+    (s0_1, e0_1, peak_1), init_err, e0_rel = init_case(init_args, f"{BATCH} real level-1 batches")
+    m_int = feature_map_int(*ev0, npos=n_map, k=c_map)  # the oracle's input, off the kernels' path
     nnz = int((m_int != 0).sum())
     bq, step = bank_quantize_int16(mld.augmented(1)[:n_raw])
     check(np.float32(step) == mp1.bank_step, "bank step differs from the oracle's")
@@ -415,26 +486,35 @@ def hierarchy(dev, card: str):
         oracle_s0[b] = int8_init_scores(m_int[b].cpu().numpy(), bq, step, ps[b].cpu().numpy())
         check(s0_1[b].cpu().numpy().tobytes() == oracle_s0[b].tobytes(), f"int8 init != oracle at block {b}")
         log(f"[7] int8 init == oracle.int8_init_scores at block {b} ({time.perf_counter() - t0:.1f} s of NumPy)")
-    # adversarial: an all-zero block, duplicate cells, cells at the bound
+    # adversarial events: a cell of 64 events, cells at the four-digit bound
+    # from large codes, events past `count`, at N - W < pos < N and off the
+    # map, and an all-zero block
     rng = np.random.default_rng(11)
-    n_map, c_map = m_int.shape[1], m_int.shape[2]
     m_ev = 4096
     pos = rng.integers(0, n_map, (4, m_ev)).astype(np.int32)
     atm = rng.integers(0, c_map, (4, m_ev)).astype(np.int32)
     cds = rng.integers(-32767, 32768, (4, m_ev)).astype(np.int32)
     pos[:, 1:64], atm[:, 1:64] = pos[:, :1], atm[:, :1]
-    cnt = np.array([m_ev, m_ev // 2, 7, 0], np.int32)
-    adv = feature_map_int(*(torch.from_numpy(a).to(dev) for a in (pos, atm, cds, cnt)), npos=n_map, k=c_map)
     bound = 2139062143
-    for i, v in enumerate((bound, -bound, bound - 255, -bound + 1, bound)):
-        adv[i % 3, int(rng.integers(0, n_map)), int(rng.integers(0, c_map))] = v
-    adv_args = (adv, ps[:4].contiguous(), mp1.bank_planes, mp1.bank_step)
-    ak, apk = init_kernels.sparse_init_raw(*adv_args)
-    ap, app = encode_init_int_raw_torch(*adv_args)
-    check(torch.equal(ak, ap) and torch.equal(apk, app), "sparse_init kernel != plain on the adversarial batch")
-    check(float(apk[3]) == 0.0 and not bool(ak[3].any()), "all-zero block has nonzero raw rows")
-    init_err = max(init_err, max_abs_diff([ak, apk], [ap, app]))
-    log(f"[7] sparse_init: kernel == plain bitwise on {BATCH} real level-1 maps ({nnz} nonzero cells, "
+    big = (bound, -bound, bound - 255, -bound + 1, bound)
+    for blk in (0, 1):
+        cds[blk, 64:69] = big
+        for j in range(64, 69):  # nothing else adds to these cells
+            clash = (pos[blk] == pos[blk, j]) & (atm[blk] == atm[blk, j])
+            clash[64:69] = False
+            cds[blk, clash] = 0
+    pos[:, 69:80] = n_map - 1 - rng.integers(0, w1 - 1, (4, 11))
+    pos[:, 80], pos[:, 81], atm[:, 82], atm[:, 83] = -1, n_map, c_map, -1
+    cnt = np.array([m_ev, m_ev // 2, 7, 0], np.int32)
+    adv = [torch.from_numpy(a).to(dev) for a in (pos, atm, cds, cnt)]
+    adv_map = feature_map_int(*adv, npos=n_map, k=c_map)
+    check(set(big) <= set(adv_map[:2].unique().tolist()), "the adversarial map misses a bound cell")
+    (ak, _, apk), err, rel = init_case((*adv, ps[:4].contiguous(), mp1.bank_planes, mp1.bank_step),
+                                       "the adversarial batch")
+    check(float(apk[3]) == 0.0 and not bool(ak[3].any()), "all-zero block has nonzero scores")
+    init_err, e0_rel = max(init_err, err), max(e0_rel, rel)
+    log(f"[7] int8 init: kernels == plain route bitwise (scores {tuple(s0_1.shape)}, peak; "
+        f"e0 within {e0_rel:.3g} relative) on {BATCH} real level-1 batches ({nnz} nonzero cells, "
         f"{nnz / BATCH:.0f} per block) and on the adversarial batch; == oracle on 2 blocks")
 
     # ---- 8. ordered-decode kernel vs plain version vs oracle --------------
@@ -465,20 +545,24 @@ def hierarchy(dev, card: str):
     codec_od = CorpusEncoder(mld_o, device=dev, distributed=True)
     counters = {"mp_encode": mp_kernels, "int_decode": decode_integer_kernel,
                 "sparse_init": init_kernels, "ordered_decode": decode_kernel}
-    for mod in counters.values():
-        mod.LAUNCHES = 0
-    blob = codec.encode(xs)
-    blob2 = codec.encode(xs)
-    rows = codec.decode(blob)
-    blob_o = codec_o.encode(xs)
-    rows_o = codec_o.decode(blob_o)
-    blob_d = codec_d.encode(xs)
-    rows_d = codec_d.decode(blob_d)
-    blob_od = codec_od.encode(xs)
-    rows_od = codec_od.decode(blob_od)
-    launches = {name: mod.LAUNCHES for name, mod in counters.items()}
-    log(f"[9] launches on the hierarchical path: {launches}")
+    # the dense route of the int8 init: the hand-off map and the torch epilogue
+    dense_fns = ("feature_map_int", "int8_assemble_batched")
+    with counting_calls(encode_ops, dense_fns) as dense:
+        for mod in counters.values():
+            mod.LAUNCHES = 0
+        blob = codec.encode(xs)
+        blob2 = codec.encode(xs)
+        rows = codec.decode(blob)
+        blob_o = codec_o.encode(xs)
+        rows_o = codec_o.decode(blob_o)
+        blob_d = codec_d.encode(xs)
+        rows_d = codec_d.decode(blob_d)
+        blob_od = codec_od.encode(xs)
+        rows_od = codec_od.decode(blob_od)
+        launches = {name: mod.LAUNCHES for name, mod in counters.items()}
+    log(f"[9] launches on the hierarchical path: {launches}; calls of the dense int8-init route: {dense}")
     check(all(v > 0 for v in launches.values()), "a kernel of the hierarchical path was never launched")
+    check(not any(dense.values()), "the CUDA int8 path built a dense map or ran the torch epilogue")
     check(blob == blob2, "two encodes of one corpus gave different bytes")
     for r in (rows, rows_o, rows_d, rows_od):
         check(r.shape == (N_BLOCKS, cfg.block_size) and np.isfinite(r).all(), "bad decode output")
@@ -548,7 +632,9 @@ def hierarchy(dev, card: str):
             f"bitwise; max |diff| to top-only rows {worst:.3g} (within the per-block bound)")
     plain = CorpusEncoder(mld, device=dev, backend="torch")
     plain_o = CorpusEncoder(mld_o, device=dev, backend="torch")
-    check(plain.encode(xs) == blob, "backend='torch' container != backend='cuda' container")
+    with counting_calls(encode_ops, dense_fns) as dense_plain:
+        check(plain.encode(xs) == blob, "backend='torch' container != backend='cuda' container")
+    check(all(dense_plain.values()), f"the dense-route counter saw {dense_plain} on backend='torch'")
     check(plain.decode(blob).tobytes() == rows.tobytes(), "backend='torch' integer rows != cuda rows")
     check(plain_o.decode(blob_o).tobytes() == rows_o.tobytes(), "backend='torch' ordered rows != cuda rows")
     check(plain.decode(blob_d).tobytes() == rows_d.tobytes(), "backend='torch' distributed rows != cuda rows")
@@ -559,8 +645,9 @@ def hierarchy(dev, card: str):
         f"dB (ordered); backend='torch' containers and rows identical")
 
     # ---- 10. timing in turns, median [range] -------------------------------
-    in_k, in_p = turns(lambda: cuda_ms(lambda: init_kernels.sparse_init_raw(*init_args), 10),
-                       lambda: cuda_ms(lambda: encode_init_int_raw_torch(*init_args), 1), 4)
+    in_k, in_p = turns(lambda: cuda_ms(lambda: init_kernel(init_args), 10),
+                       lambda: cuda_ms(lambda: init_plain(init_args), 1), 4)
+    handoff_ms = cuda_ms(lambda: coder.handoff(0, enc0), 10)
     # one PyTorch call for the raw rows' integer correlation: a float64
     # conv1d of the map against the int16 bank codes (exact below 2^53)
     m64 = m_int.double().transpose(1, 2).contiguous()
@@ -583,9 +670,18 @@ def hierarchy(dev, card: str):
     do_k, do_p = turns(lambda: mb / wall_s(lambda: codec_o.decode(blob_o)),
                        lambda: mb / wall_s(lambda: plain_o.decode(blob_o)), 4)
     log(f"[10] card {card}")
-    log(f"[10] int8 level-1 init raw rows, one {BATCH}-block batch: sparse-init kernel {stats(in_k, 'ms')}, "
-        f"plain float64 dense conv {stats(in_p, 'ms')}")
-    log(f"[10] (float64 conv1d of the map against the bank codes, one call: {in_lib:.3f} ms)")
+    b1, m1 = ev0[0].shape
+    n_raw1 = int(mp1.bank_planes.shape[0])
+    # events and scales read, planes read, the score buffer, e0 and peak
+    # written; per nonzero cell and raw atom, W x 4 digits x 2 planes,
+    # multiply and add
+    init_bound = card_bound(4 * (3 * b1 * m1 + 2 * b1) + mp1.bank_planes.numel()
+                            + 4 * (s0_1.numel() + e0_1.numel() + peak_1.numel()), nnz * n_raw1 * w1 * 16)
+    log(f"[10] int8 level-1 init, one {BATCH}-block batch (events in; scores {tuple(s0_1.shape)}, e0, peak out): "
+        f"kernels {stats(in_k, 'ms')}, plain route (dense hand-off map, float64 dense conv, torch epilogue) "
+        f"{stats(in_p, 'ms')}; bound {init_bound['bound_ms']:.4f} ms by {init_bound['bound_by']}")
+    log(f"[10] (float64 conv1d of the map against the bank codes, one call: {in_lib:.3f} ms; "
+        f"the level-0 -> level-1 hand-off: {handoff_ms:.4f} ms of device time per batch)")
     log(f"[10] ordered decode, one {BATCH}-block batch of top streams: kernel {stats(od_k, 'ms')}, "
         f"plain {stats(od_p, 'ms')}")
     log(f"[10] greedy loop at level 1, one {BATCH}-block batch (K={mld.num_atoms(1)}, W={cfg.window_sizes[1]}, "
@@ -597,17 +693,25 @@ def hierarchy(dev, card: str):
         f"torch {stats(di_p, 'MB/s', '.2f')}")
     log(f"[10] hierarchical decode (ordered), host wall: cuda {stats(do_k, 'MB/s', '.2f')}, "
         f"torch {stats(do_p, 'MB/s', '.2f')}")
-    log("[10] " + profile_line("hierarchical encode", lambda: codec.encode(xs)))
-    n_raw1, w1 = int(mp1.bank_planes.shape[0]), int(mp1.bank_planes.shape[1])
-    init_bound = card_bound(4 * (m_int.numel() + ps.numel() + raw_k.numel() + peak_k.numel()) + mp1.bank_planes.numel(),
-                       nnz * n_raw1 * w1 * 16)  # 4 digits x 2 planes, multiply and add
+    handoff = coder.handoff
+
+    def annotated_handoff(level, enc):
+        with torch.profiler.record_function("hand-off"):
+            return handoff(level, enc)
+
+    coder.handoff = annotated_handoff  # the profile splits out the hand-offs' device time
+    try:
+        log("[10] " + profile_line("hierarchical encode", lambda: codec.encode(xs)))
+    finally:
+        del coder.handoff
     ev1 = int(enc1.count.sum())
     od_bound = card_bound(12 * ev1 + 8 * BATCH + 4 * (bank1.numel() + got.numel()), 3 * ev1 * int(bank1.shape[1]))
     kernels = [
         {"name": "sparse_init", "route": "cuda", "source": "hsc_torch/csrc/sparse_init.cu",
-         "replaces": "hsc_tpu/ops/init_kernels.py:76", "launches": launches["sparse_init"],
-         "max_abs_err": init_err, "ms": statistics.median(in_k), "plain_ms": statistics.median(in_p),
-         **init_bound, "library_ms": in_lib},
+         "replaces": "hsc_tpu/ops/init_kernels.py:76, hsc_tpu/ops/encode.py:479",
+         "launches": launches["sparse_init"],
+         "max_abs_err": init_err, "e0_max_rel_err": e0_rel, "ms": statistics.median(in_k),
+         "plain_ms": statistics.median(in_p), **init_bound, "library_ms": in_lib},
         {"name": "ordered_decode", "route": "cuda", "source": "hsc_torch/csrc/ordered_decode.cu",
          "replaces": "hsc_tpu/ops/decode_kernel.py:33", "launches": launches["ordered_decode"],
          "max_abs_err": od_err, "ms": statistics.median(od_k), "plain_ms": statistics.median(od_p),

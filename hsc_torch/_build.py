@@ -48,12 +48,11 @@ BUILD_SECONDS = 0.0
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_L = ctypes.c_longlong
 _SIGNATURES = {
     # pointers, then ints/floats, then the stream; returns cudaError_t
     "hsc_mp_encode": [_P] * 11 + [_I] * 6 + [_F, _I, _F, _P],
     "hsc_int_decode": [_P] * 7 + [_I] * 5 + [_P],
-    "hsc_sparse_init": [_P] * 5 + [_I] * 5 + [_L, _P],
+    "hsc_int8_init": [_P] * 10 + [_F] + [_I] * 7 + [_P],
     "hsc_ordered_decode": [_P] * 7 + [_I] * 5 + [_P],
 }
 

@@ -2,13 +2,13 @@
 
 `ConvolutionalMatchingPursuit` binds one (bank, Gram) pair and runs the
 batched encode, from a signal (the f32 init) or, at levels >= 1 under
-hier_init='int8', from the exact integer map of the level below (the int8
-init); `ConvolutionalSparseCoder` is one level; and
-`HierarchicalConvolutionalSparseCoder` drives the levels, the feature-map
-hand-offs between them and both decode modes.
+hier_init='int8', from the events of the level below (the int8 init);
+`ConvolutionalSparseCoder` is one level; and
+`HierarchicalConvolutionalSparseCoder` drives the levels, the hand-offs
+between them and both decode modes.
 
-`backend`: 'cuda' runs the hand-written CUDA kernels (greedy loop, sparse
-int8 init, integer and ordered decode), 'torch' their plain PyTorch
+`backend`: 'cuda' runs the hand-written CUDA kernels (greedy loop, int8
+init, integer and ordered decode), 'torch' their plain PyTorch
 versions, 'auto' picks 'cuda' exactly when the device is a CUDA device.
 Both emit identical streams and identical decoded bytes.
 """
@@ -27,14 +27,12 @@ from ..ops.decode_kernel import mp_decode_batch
 from ..ops.encode import (
     EncodedBlock,
     encode_init_batched,
-    encode_init_int_batched,
-    encode_init_int_raw_torch,
     feature_map,
-    feature_map_int,
+    int8_init_from_events_torch,
     mp_encode_from_init_torch,
     quantizer_steps,
 )
-from ..ops.init_kernels import sparse_init_raw
+from ..ops.init_kernels import int8_init, kernel_planes
 from ..ops.mp_kernels import mp_loop
 from ..oracle.mp import LevelStream, rep_quantize
 from ..params import LevelParams, int8_bank_tables, level_params_from_numpy
@@ -127,6 +125,12 @@ class ConvolutionalMatchingPursuit(nn.Module):
         self.register_buffer("gram_t", params.gram_t)
         self.register_buffer("weights", params.weights)
         self.register_buffer("bank_planes", params.bank_planes)
+        # the same planes in the int8-init kernel's layout, made once
+        self.register_buffer(
+            "init_planes",
+            kernel_planes(params.bank_planes)
+            if self.int8_init and self.backend == "cuda" else None,
+        )
         self.num_coefs = int(num_coefs)
         self.settings = dict(
             num_coefs=int(num_coefs),
@@ -159,24 +163,26 @@ class ConvolutionalMatchingPursuit(nn.Module):
         scale, inv = quantizer_steps(peak.cpu().numpy(), self.settings["amp_bits"])
         return self.loop_stage(scores0, e0, scale, inv)
 
-    def init_int_batched(self, m_int: torch.Tensor, prev_scale: torch.Tensor):
-        """The int8 init bound to this bank (needs ``int8_init=True``):
-        ``m_int [B, N, C]`` int32 exact maps, ``prev_scale [B]`` f32 (the
-        emitting level's scales) -> ``(scores0, e0, peak)``.  The raw rows
-        come from the sparse-init kernel on backend 'cuda' and from the
-        plain dense form on 'torch' — the same bits."""
+    def init_int_batched(self, positions, atoms, codes, count, prev_scale, n_map: int):
+        """The int8 init bound to this bank (needs ``int8_init=True``) from
+        the emitting level's events: ``[B, M]`` int32 padded buffers with
+        ``count [B]``, their f32 scales ``prev_scale [B]`` and the length
+        `n_map` of the map they lie on -> ``(scores0, e0, peak)``.  Backend
+        'cuda' runs the int8-init kernels, which build no dense map; 'torch'
+        the plain version (the hand-off map, then the dense init) — the same
+        scores and peak."""
         if not self.int8_init:
             raise ValueError("init_int_batched needs a coder built with int8_init=True")
-        raw = sparse_init_raw if self.backend == "cuda" else encode_init_int_raw_torch
-        return encode_init_int_batched(
-            m_int, prev_scale, self.bank_planes, self.bank_step, raw=raw
-        )
+        args = (positions, atoms, codes, count, prev_scale, self.bank_planes, self.bank_step)
+        if self.backend == "cuda":
+            return int8_init(*args, n_map=n_map, planes_cnw=self.init_planes)
+        return int8_init_from_events_torch(*args, n_map=n_map)
 
-    def compute_coefficients_batch_int(self, m_int, prev_scale) -> EncodedBlock:
-        """Encode exact integer maps ``[B, N, C]`` with their emitting
-        level's f32 scales through the int8 init — the level >= 1 entry
+    def compute_coefficients_batch_int(self, *events) -> EncodedBlock:
+        """Encode the emitting level's events (the arguments of
+        `init_int_batched`) through the int8 init — the level >= 1 entry
         point under hier_init='int8'."""
-        scores0, e0, peak = self.init_int_batched(m_int, prev_scale)
+        scores0, e0, peak = self.init_int_batched(*events)
         scale, inv = quantizer_steps(peak.cpu().numpy(), self.settings["amp_bits"])
         return self.loop_stage(scores0, e0, scale, inv)
 
@@ -241,13 +247,13 @@ class HierarchicalConvolutionalSparseCoder(nn.Module):
         self._rep_q_banks: dict[tuple[int, int], tuple[torch.Tensor, np.float32]] = {}
 
     def handoff(self, level: int, enc: EncodedBlock):
-        """The level -> level+1 hand-off of a batch (`hsc_tpu`'s
-        `fmap_int_batched` / `fmap_batched`): ``(int32 maps [B, npos, K],
-        scales)`` for the int8 init, else the f32 maps."""
+        """The level -> level+1 hand-off of a batch: for an int8 level the
+        events themselves, ``(positions, atoms, codes, count, scales,
+        n_map)`` as `ConvolutionalMatchingPursuit.init_int_batched` takes
+        them; else the f32 maps (`hsc_tpu`'s `fmap_batched`)."""
         npos, k = self.cfg.num_positions(level), self.mld.num_atoms(level)
         if self.coders[level + 1].mp.int8_init:
-            m_int = feature_map_int(enc.positions, enc.atoms, enc.codes, enc.count, npos=npos, k=k)
-            return m_int, enc.scale
+            return enc.positions, enc.atoms, enc.codes, enc.count, enc.scale, npos
         return feature_map(enc, npos=npos, k=k)
 
     def _rep_q(self, level: int, rep_bits: int):

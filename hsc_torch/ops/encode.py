@@ -1,9 +1,10 @@
 """Greedy convolutional matching pursuit — the plain PyTorch path.
 
 Counterpart of `hsc_tpu.ops.encode`: the init (correlation, energy, peak),
-the level hand-off maps, the int8 level >= 1 init (the plain version of the
-sparse-init kernel, `ops.init_kernels`), the host quantizer steps, and the
-greedy loop given its init.  The loop here
+the level hand-off maps, the int8 level >= 1 init (from a dense map, and
+from events: the plain version of the int8-init kernels,
+`ops.init_kernels`), the host quantizer steps, and the greedy loop given
+its init.  The loop here
 is the PLAIN version of the hand-written CUDA kernel
 (`ops.mp_kernels.mp_loop`): CPU tensors run it, the CUDA kernel is held
 bitwise to it on the card, and ``backend='torch'`` selects it explicitly.
@@ -118,8 +119,7 @@ def encode_init_int_raw_torch(
     *,
     out: torch.Tensor | None = None,
 ):
-    """Raw (learned-atom) rows of the int8 init — the PLAIN version of the
-    sparse-init kernel (`ops.init_kernels.sparse_init_raw`), bitwise
+    """Raw (learned-atom) rows of the int8 init, bitwise
     `hsc_tpu.ops.encode.encode_init_int_raw` and the raw rows of
     `oracle.mp.int8_init_scores`.
 
@@ -182,21 +182,43 @@ def encode_init_int_batched(
     prev_scale: torch.Tensor,
     bank_planes: torch.Tensor,
     step,
-    *,
-    raw=encode_init_int_raw_torch,
 ):
-    """The int8 init for levels >= 1 (hier_init='int8'): ``m_int [B, N, C]``
-    int32, ``prev_scale [B]`` f32 -> ``(scores0 [B, n_raw + C, npos], e0,
-    peak)``, bitwise `oracle.mp.int8_init_scores` per block (e0 aside).
-    `raw` produces the raw rows into ``scores0[:, :n_raw]`` — the plain
-    dense form by default, or the sparse-init kernel wrapper — so no concat
-    copy of the score buffer is made."""
+    """The int8 init for levels >= 1 (hier_init='int8') of a dense map:
+    ``m_int [B, N, C]`` int32, ``prev_scale [B]`` f32 -> ``(scores0 [B,
+    n_raw + C, npos], e0, peak)``, bitwise `oracle.mp.int8_init_scores` per
+    block (e0 aside).  The raw rows go straight into ``scores0[:, :n_raw]``,
+    so no concat copy of the score buffer is made."""
     b, n, c = m_int.shape
     n_raw, w = int(bank_planes.shape[0]), int(bank_planes.shape[1])
     scores0 = torch.empty((b, n_raw + c, n - w + 1), dtype=torch.float32, device=m_int.device)
-    _, peak_raw = raw(m_int, prev_scale, bank_planes, step, out=scores0[:, :n_raw])
+    _, peak_raw = encode_init_int_raw_torch(
+        m_int, prev_scale, bank_planes, step, out=scores0[:, :n_raw]
+    )
     e0, peak = int8_assemble_batched(scores0, peak_raw, m_int, prev_scale)
     return scores0, e0, peak
+
+
+def int8_init_from_events_torch(
+    positions: torch.Tensor,
+    atoms: torch.Tensor,
+    codes: torch.Tensor,
+    count: torch.Tensor,
+    prev_scale: torch.Tensor,
+    bank_planes: torch.Tensor,
+    step,
+    *,
+    n_map: int,
+):
+    """The int8 init of a level >= 1 from the emitting level's events — the
+    PLAIN version of the int8-init kernels (`ops.init_kernels.int8_init`)
+    and what the CPU runs: the hand-off map `feature_map_int` (``[B, n_map,
+    C]``, C from `bank_planes`), then `encode_init_int_batched`.  Events are
+    ``[B, M]`` int32 padded buffers with ``count [B]``; returns ``(scores0
+    [B, n_raw + C, npos], e0, peak)``."""
+    m_int = feature_map_int(
+        positions, atoms, codes, count, npos=n_map, k=int(bank_planes.shape[2])
+    )
+    return encode_init_int_batched(m_int, prev_scale, bank_planes, step)
 
 
 def quantizer_steps(peak, amp_bits: int):

@@ -1,79 +1,112 @@
 """The int8 level >= 1 init on the card: wrapper of the hand-written CUDA
-kernel `hsc_torch/csrc/sparse_init.cu` (the port of the Pallas kernel
-`hsc_tpu/ops/init_kernels.py :: _sparse_init_kernel`).
+kernels `hsc_torch/csrc/sparse_init.cu` (the port of the Pallas kernel
+`hsc_tpu/ops/init_kernels.py :: _sparse_init_kernel` and of the singleton,
+e0 and peak part of `hsc_tpu/ops/encode.py :: int8_assemble_batched`).
 
-`sparse_init_raw` takes the same inputs as the plain version
-(`ops.encode.encode_init_int_raw_torch`) and returns the same raw score rows
-and peak, bitwise.  A CPU tensor runs the plain version; a CUDA tensor
-launches the kernel or raises — there is no fallback.  The kernel reads the
-exact int32 feature map (`ops.encode.feature_map_int`), whose cells are
-already the spec's cell sums, so the Pallas path's event aggregation
-(`aggregate_codes`, an O(M^2) equality matrix per block) has no counterpart.
-It takes every geometry `CodecConfig` admits for hier_init='int8'
-(``W * C <= 65535``); the TPU gate `sparse_init_supported` has none either.
+`int8_init` takes the emitting level's events, as the plain version
+(`ops.encode.int8_init_from_events_torch`) does, and returns the whole score
+buffer, e0 and the peak.  A CPU tensor runs the plain version; a CUDA tensor
+launches the kernels or raises — there is no fallback.  On the card no dense
+``[B, N, C]`` map is built: one kernel merges each block's events into
+sorted cell sums (the counterpart of the Pallas path's `aggregate_codes`),
+a second writes every score row from them.  The scores and the peak are
+bitwise the plain version's; e0 is an f32 sum in another order (within
+1e-6 of it, relative).  It takes every geometry `CodecConfig` admits for
+hier_init='int8' (``W * C <= 65535``) with at most `MAX_EVENTS` events per
+block.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from .. import _build
-from .encode import encode_init_int_raw_torch
+from .encode import int8_init_from_events_torch
 from .mp_kernels import check_tensor
 
-# kernel launches since import (or since a caller reset it to 0)
+# kernel launches since import (or since a caller reset it to 0); one launch
+# is one call's pair of kernels
 LAUNCHES = 0
+# the .cu's kMaxEvents (events per block the cell kernel sorts in shared
+# memory) and kIndexStride (positions per entry of its cell index)
+MAX_EVENTS = 8192
+INDEX_STRIDE = 32
 
 
-def sparse_init_raw(
-    m_int: torch.Tensor,
+def kernel_planes(bank_planes: torch.Tensor) -> torch.Tensor:
+    """The bank planes ``[n_raw, W, C, 2]`` in the kernel's layout ``[C,
+    n_raw, Wp, 2]``: each (channel, raw atom) row of offsets contiguous and
+    zero-padded to ``Wp``, a multiple of 8, so the kernel stages rows with
+    16-byte loads.  A coder makes it once
+    (`models.coder.ConvolutionalMatchingPursuit`)."""
+    n_raw, w, c, _ = bank_planes.shape
+    out = bank_planes.new_zeros((c, n_raw, -(-w // 8) * 8, 2))
+    out[:, :, :w] = bank_planes.permute(2, 0, 1, 3)
+    return out
+
+
+def int8_init(
+    positions: torch.Tensor,
+    atoms: torch.Tensor,
+    codes: torch.Tensor,
+    count: torch.Tensor,
     prev_scale: torch.Tensor,
     bank_planes: torch.Tensor,
     step,
     *,
-    out: torch.Tensor | None = None,
+    n_map: int,
+    planes_cnw: torch.Tensor | None = None,
 ):
-    """Raw rows of the int8 init: ``m_int [B, N, C]`` int32, ``prev_scale
-    [B]`` f32, ``bank_planes [n_raw, W, C, 2]`` int8, ``step`` the f32 bank
-    step -> ``(raw [B, n_raw, npos] f32, peak_raw [B] f32)``.  `raw` is
-    written into `out` when given (a ``[B, n_raw, npos]`` view whose rows are
-    contiguous, such as the raw rows of a preallocated score buffer)."""
-    if m_int.device.type == "cpu":
-        return encode_init_int_raw_torch(m_int, prev_scale, bank_planes, step, out=out)
-    if m_int.device.type != "cuda":
-        raise ValueError(f"sparse_init_raw: unsupported device {m_int.device}")
+    """The int8 init of a level >= 1 from the emitting level's events:
+    ``positions``, ``atoms``, ``codes`` ``[B, M]`` int32 padded buffers with
+    ``count [B]`` int32 and the scales ``prev_scale [B]`` f32, against
+    ``bank_planes [n_raw, W, C, 2]`` int8 with the f32 bank step `step`, on
+    a map of `n_map` positions -> ``(scores0 [B, n_raw + C, npos], e0 [B],
+    peak [B])``.  `planes_cnw` is `kernel_planes(bank_planes)`, made once by
+    the caller; without it each call makes it."""
+    if positions.device.type == "cpu":
+        return int8_init_from_events_torch(
+            positions, atoms, codes, count, prev_scale, bank_planes, step, n_map=n_map
+        )
+    if positions.device.type != "cuda":
+        raise ValueError(f"int8_init: unsupported device {positions.device}")
     global LAUNCHES
-    dev = m_int.device
-    if m_int.dim() != 3 or bank_planes.dim() != 4:
-        raise ValueError("m_int must be [B, N, C] and bank_planes [n_raw, W, C, 2]")
-    b, n, c = m_int.shape
-    n_raw, w = int(bank_planes.shape[0]), int(bank_planes.shape[1])
-    npos = n - w + 1
+    dev = positions.device
+    if positions.dim() != 2 or bank_planes.dim() != 4:
+        raise ValueError("events must be [B, M] and bank_planes [n_raw, W, C, 2]")
+    b, m = positions.shape
+    n_raw, w, c = (int(s) for s in bank_planes.shape[:3])
+    npos = n_map - w + 1
     if npos < 1:
-        raise ValueError(f"atom width {w} does not fit a map of {n} positions")
-    check_tensor(m_int, "m_int", torch.int32, (b, n, c), dev)
+        raise ValueError(f"atom width {w} does not fit a map of {n_map} positions")
+    if m > MAX_EVENTS:
+        raise ValueError(f"int8_init takes at most {MAX_EVENTS} events per block, got {m}")
+    if n_map * c >= 2**31 - 1:
+        raise ValueError(f"a map of {n_map} x {c} cells does not fit the kernel's int32 keys")
+    for t, name in ((positions, "positions"), (atoms, "atoms"), (codes, "codes")):
+        check_tensor(t, name, torch.int32, (b, m), dev)
+    check_tensor(count, "count", torch.int32, (b,), dev)
     check_tensor(prev_scale, "prev_scale", torch.float32, (b,), dev)
     check_tensor(bank_planes, "bank_planes", torch.int8, (n_raw, w, c, 2), dev, contiguous=False)
-    if out is None:
-        out = torch.empty((b, n_raw, npos), dtype=torch.float32, device=dev)
-    check_tensor(out, "out", torch.float32, (b, n_raw, npos), dev, contiguous=False)
-    if out.stride(2) != 1 or out.stride(1) != npos:
-        raise ValueError("out must have contiguous [n_raw, npos] rows")
-    # the kernel reads the planes as [C, n_raw, W] (b0, b1) pairs, so that
-    # neighbouring positions read neighbouring offsets
-    planes = bank_planes.permute(2, 0, 1, 3).contiguous()
-    g = prev_scale * torch.tensor(np.float32(step), device=dev)  # f32(prev_scale * step)
-    peak_bits = torch.zeros((b,), dtype=torch.int32, device=dev)
+    if planes_cnw is None:
+        planes_cnw = kernel_planes(bank_planes)
+    check_tensor(planes_cnw, "planes_cnw", torch.int8, (c, n_raw, -(-w // 8) * 8, 2), dev)
+    scores0 = torch.empty((b, n_raw + c, npos), dtype=torch.float32, device=dev)
+    e0 = torch.empty((b,), dtype=torch.float32, device=dev)
+    peak_bits = torch.empty((b,), dtype=torch.int32, device=dev)
+    n_index = -(-n_map // INDEX_STRIDE) + 1
+    work = torch.empty((2 * b * m + b * n_index,), dtype=torch.int32, device=dev)
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.hsc_sparse_init(
-            m_int.data_ptr(), g.data_ptr(), planes.data_ptr(), out.data_ptr(),
-            peak_bits.data_ptr(), b, n, c, n_raw, w, out.stride(0), stream,
+        err = lib.hsc_int8_init(
+            positions.data_ptr(), atoms.data_ptr(), codes.data_ptr(), count.data_ptr(),
+            prev_scale.data_ptr(), planes_cnw.data_ptr(), work.data_ptr(), scores0.data_ptr(),
+            e0.data_ptr(), peak_bits.data_ptr(), float(step), b, m, n_map, c, n_raw, w,
+            n_index, stream,
         )
-    _build.check(lib, err, "hsc_sparse_init launch")
+    _build.check(lib, err, "hsc_int8_init launch")
     LAUNCHES += 1
-    # non-negative floats order like their bits: the kernel's integer max of
-    # the bits of |raw| is the float max
-    return out, peak_bits.view(torch.float32)
+    # non-negative floats order like their bits: the kernels' integer max of
+    # the bits of |score| is the float max
+    return scores0, e0, peak_bits.view(torch.float32)

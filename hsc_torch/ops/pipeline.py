@@ -91,7 +91,7 @@ def encode_hierarchical_batches_pipelined(batches: list, coder, window: int = 4)
     def _push(level, xb):
         mp = coder.coders[level].mp
         if mp.int8_init:
-            pend[level].append(mp.init_int_batched(*xb))  # (int32 maps, scales)
+            pend[level].append(mp.init_int_batched(*xb))  # the level below's events
         else:
             pend[level].append(encode_init_batched(xb, mp.bank))
 

@@ -54,6 +54,7 @@ from hsc_torch.ops.encode import (
     encode_init_int_raw_torch,
     feature_map,
     feature_map_int,
+    int8_init_from_events_torch,
 )
 from hsc_torch.ops.pipeline import encode_hierarchical_batches_pipelined
 from hsc_torch.params import dictionary_from_arrays, level_params_from_mld, level_params_from_numpy
@@ -203,6 +204,56 @@ def test_int8_init_plain_bitwise(seed, n_raw, w, c, n, m):
     for j in range(2):
         want = int8_init_scores(m_np[j], bq, step, prev_scale[j])
         assert s0[j].numpy().tobytes() == want.tobytes()
+
+
+@pytest.mark.parametrize("seed,n_raw,w,c,n,m", INIT_GEOMETRIES)
+def test_int8_init_from_events_bitwise_jax(seed, n_raw, w, c, n, m):
+    """The event route (`int8_init_from_events_torch`: what the CPU runs,
+    and what the int8-init kernels are held to on the card) with events past
+    `count`, at N - W < pos < N and off the map: the score buffer and the
+    peak bitwise JAX's hand-off and int8 init (`feature_map_int_jax`,
+    `encode_init_int_batched`), the raw rows bitwise the Pallas kernel
+    (interpret mode) on `aggregate_codes` of the events the map takes, e0
+    within 1e-6."""
+    rng = np.random.default_rng(100 + seed)
+    positions, atoms, codes, count = _random_events(rng, 2, m, n, c)
+    count[:] = (m, m - 2)
+    positions[0, 4] = n - 1  # past the last score position
+    positions[1, 5], atoms[0, 6], atoms[1, 7] = -3, c, -1  # off the map
+    bank = rng.standard_normal((n_raw, w, c)).astype(np.float32)
+    bq, step = bank_quantize_int16(bank)
+    planes = balanced_digits(bq, 2).astype(np.int8)
+    prev_scale = rng.uniform(1e-5, 2.0, size=2).astype(np.float32)
+    npos = n - w + 1
+
+    t = [torch.from_numpy(a) for a in (positions, atoms, codes, count, prev_scale, planes)]
+    s0, e0, peak = int8_init_from_events_torch(*t, step, n_map=n)
+    m_j = jnp.stack([
+        feature_map_int_jax(
+            JaxEncodedBlock(jnp.asarray(positions[j]), jnp.asarray(atoms[j]), jnp.asarray(codes[j]),
+                            jnp.int32(count[j]), jnp.float32(0), jnp.float32(0), jnp.float32(0)),
+            npos=n, k=c,
+        )
+        for j in range(2)
+    ])
+    s0_j, e0_j, peak_j = jax_init_int(m_j, jnp.asarray(prev_scale), jnp.asarray(planes), jnp.float32(step))
+    assert s0.numpy().tobytes() == np.asarray(s0_j).tobytes()
+    assert peak.numpy().tobytes() == np.asarray(peak_j).tobytes()
+    np.testing.assert_allclose(e0.numpy(), np.asarray(e0_j), rtol=1e-6)
+    # the Pallas kernel takes only events on the map: compact them per block
+    live = (np.arange(m)[None, :] < count[:, None]) & (positions >= 0) & (positions < n)
+    live &= (atoms >= 0) & (atoms < c)
+    packed = [np.zeros((2, m), np.int32) for _ in range(3)]
+    for j in range(2):
+        for dst, src in zip(packed, (positions, atoms, codes)):
+            dst[j, : live[j].sum()] = src[j, live[j]]
+    pk_pos, pk_atm, pk_cds = (jnp.asarray(a) for a in packed)
+    agg = aggregate_codes(pk_pos, pk_atm, pk_cds, jnp.asarray(live.sum(1).astype(np.int32)), c_in=c)
+    raw_k, _ = sparse_init_raw_pallas(
+        pk_pos, pk_atm, agg, jnp.asarray(prev_scale) * jnp.float32(step),
+        jnp.asarray(build_bank_rev(planes)), npos=npos, n_raw=n_raw, interpret=True,
+    )
+    assert s0[:, :n_raw].numpy().tobytes() == np.asarray(raw_k[:, :n_raw, :npos]).tobytes()
 
 
 def test_int8_init_digit_bound_and_zero_block():

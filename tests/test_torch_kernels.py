@@ -32,9 +32,8 @@ from hsc_torch.ops import decode_integer_kernel, decode_kernel, init_kernels, mp
 from hsc_torch.ops.decode import mp_decode_batch_torch, mp_decode_integer_batch_torch
 from hsc_torch.ops.encode import (
     encode_init_batched,
-    encode_init_int_batched,
-    encode_init_int_raw_torch,
     feature_map_int,
+    int8_init_from_events_torch,
     mp_encode_from_init_torch,
     quantizer_steps,
 )
@@ -316,40 +315,54 @@ def test_corpus_encoder_kernels_equal_plain(device):
     assert plain.decode(blob).tobytes() == rows.tobytes()
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """A float32 tensor's bits, so that equality is bitwise (+0.0 != -0.0)."""
+    return t.contiguous().view(torch.int32)
+
+
 @pytest.mark.parametrize("seed", range(12))
 def test_sparse_init_kernel_random_geometry(device, seed):
     """Random raw-atom count, width (up to 129), channels, map length and
-    event density; duplicate cells, cells near the four-digit bound and an
-    all-zero block: the kernel's raw rows and peak bitwise the plain dense
-    version — also when written into a score buffer — and the scores
-    bitwise `oracle.int8_init_scores` on one block."""
+    event density (3000 events per block at seed 11), with duplicate cells,
+    cells at the four-digit bound made by large event codes, events past
+    `count`, at N - W < pos < N and off the map, and an all-zero block: the
+    int8-init kernels' whole score buffer and peak bitwise the plain event
+    route, e0 within 1e-6 of it, and block 0 bitwise
+    `oracle.int8_init_scores`."""
     rng = np.random.default_rng(3000 + seed)
     n_raw, w, c = int(rng.integers(1, 34)), int(rng.integers(1, 130)), int(rng.integers(1, 17))
     n, b = int(rng.integers(w, 1200)), 3
-    m = int(rng.integers(1, max(2, n * c // int(rng.choice([4, 40, 400])))))
+    m = 3000 if seed == 11 else int(rng.integers(13, max(14, n * c // int(rng.choice([4, 40, 400])))))
     pos = rng.integers(0, n, size=(b, m)).astype(np.int32)
     atm = rng.integers(0, c, size=(b, m)).astype(np.int32)
     cds = rng.integers(-32767, 32768, size=(b, m)).astype(np.int32)
     pos[:, 1:4], atm[:, 1:4] = pos[:, :1], atm[:, :1]  # duplicate cells
-    cnt = np.array([m, rng.integers(0, m + 1), 0], np.int32)  # block 2 is all zero
-    m_int = feature_map_int(*(torch.from_numpy(a).to(device) for a in (pos, atm, cds, cnt)), npos=n, k=c)
+    # three cells of block 0 hold the bound exactly: no other event adds to them
     bound = 2139062143
-    for _ in range(3):
-        m_int[0, int(rng.integers(0, n)), int(rng.integers(0, c))] = int(rng.choice([bound, -bound, bound - 255]))
+    cds[0, 4:7] = (bound, -bound, bound - 255)
+    for j in range(4, 7):
+        clash = (pos[0] == pos[0, j]) & (atm[0] == atm[0, j])
+        clash[4:7] = False
+        cds[0, clash] = 0
+    pos[:, 7] = n - 1 - rng.integers(0, w, size=b)  # N - W < pos < N
+    pos[:, 8], pos[:, 9], atm[:, 10], atm[:, 11] = -1, n, c, -1  # off the map
+    cnt = np.array([m, rng.integers(12, m), 0], np.int32)  # past count; block 2 empty
+    events = [torch.from_numpy(a).to(device) for a in (pos, atm, cds, cnt)]
     bq, step = bank_quantize_int16(rng.standard_normal((n_raw, w, c)).astype(np.float32))
     planes = torch.from_numpy(balanced_digits(bq, 2).astype(np.int8)).to(device)
     prev_scale = torch.from_numpy(rng.uniform(1e-6, 2.0, size=b).astype(np.float32)).to(device)
 
     before = init_kernels.LAUNCHES
-    raw, peak = init_kernels.sparse_init_raw(m_int, prev_scale, planes, step)
-    raw_p, peak_p = encode_init_int_raw_torch(m_int, prev_scale, planes, step)
-    assert torch.equal(raw, raw_p) and torch.equal(peak, peak_p)
-    s0, e0, pk = encode_init_int_batched(m_int, prev_scale, planes, step, raw=init_kernels.sparse_init_raw)
-    s0_p, e0_p, pk_p = encode_init_int_batched(m_int, prev_scale, planes, step)
-    assert torch.equal(s0, s0_p) and torch.equal(e0, e0_p) and torch.equal(pk, pk_p)
-    assert init_kernels.LAUNCHES == before + (2 if device.type == "cuda" else 0)
-    assert float(peak[2]) == 0.0 and not s0[2].any()
-    want = int8_init_scores(m_int[0].cpu().numpy(), bq, step, prev_scale[0].cpu().numpy())
+    s0, e0, peak = init_kernels.int8_init(*events, prev_scale, planes, step, n_map=n)
+    assert init_kernels.LAUNCHES == before + (device.type == "cuda")
+    s0_p, e0_p, peak_p = int8_init_from_events_torch(*events, prev_scale, planes, step, n_map=n)
+    assert s0.shape == (b, n_raw + c, n - w + 1)
+    assert torch.equal(_bits(s0), _bits(s0_p)) and torch.equal(_bits(peak), _bits(peak_p))
+    torch.testing.assert_close(e0, e0_p, rtol=1e-6, atol=0)
+    assert float(peak[2]) == 0.0 and not s0[2].any() and float(e0[2]) == 0.0
+    m_int = feature_map_int(*(torch.from_numpy(a) for a in (pos, atm, cds, cnt)), npos=n, k=c).numpy()
+    assert {bound, -bound, bound - 255} <= set(m_int[0].ravel().tolist())
+    want = int8_init_scores(m_int[0], bq, step, prev_scale[0].cpu().numpy())
     assert s0[0].cpu().numpy().tobytes() == want.tobytes()
 
 
