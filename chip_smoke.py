@@ -19,7 +19,9 @@ of width 32, 512 coefficients, num_select=8, integer decode) it:
      candidates) at K=80 with npos not a multiple of 128, the flagship
      hierarchy's level-1 geometry (K=96, W=65) and 12 random geometries;
   4. holds the integer-decode kernel bitwise against its plain version and
-     the oracle, including a batch whose sums wrap past 2^31;
+     the oracle, including a batch whose sums wrap past 2^31 and an edge
+     batch (70001-sample blocks, atoms wider than a tile, 3001 events in
+     one tile, an empty block, dead events);
   5. encodes 128 blocks with CorpusEncoder(device='cuda') twice (identical
      bytes), decodes them (bitwise the oracle's integer decode of the
      unpacked streams) and shows both kernels were launched on that path;
@@ -28,7 +30,9 @@ of width 32, 512 coefficients, num_select=8, integer decode) it:
      profiles one encode and one decode (device-busy share and time by
      kernel; the traces go to build/chip_smoke/).  The loop kernel updates
      its scores in place, so each timed launch gets a fresh copy made
-     outside its CUDA events.
+     outside its CUDA events; its device time is the profile's.  The
+     decode kernel's device time is a CUDA graph of 20 launches replayed
+     between CUDA events; its host time per call is 50 back-to-back calls.
 
 At the flagship hierarchy of `bench.py:257-262` (levels of 64 and 32 raw
 atoms, scales 32 and 96, 512 and 192 coefficients, num_select=8, the int8
@@ -43,7 +47,8 @@ level-1 init; dictionary seed 9, signals seed 5) it then:
      the four-digit bound from large codes, events past `count`, at
      N - W < pos < N and off the map);
   8. holds the ordered-decode kernel bitwise against its plain version on
-     64 top streams and against `oracle.hierarchical_decode` on every block;
+     64 top streams and against `oracle.hierarchical_decode` on every block,
+     and on phase 4's edge batch against `oracle.mp.mp_decode`;
   9. drives the hierarchy end to end on 128 blocks through CorpusEncoder in
      both decode modes and both container forms, counted: repeated encodes
      give identical bytes, level 1 is bitwise the oracle's greedy loop on
@@ -55,15 +60,25 @@ level-1 init; dictionary seed 9, signals seed 5) it then:
  10. times the int8-init, ordered-decode and level-1 greedy-loop kernels
      against their plain versions and the hierarchical codec on both
      backends (in turns), and profiles one hierarchical encode, with the
-     device time of the level hand-offs split out.
+     device time of the level hand-offs split out (the int8 init's device
+     time is the profile's; the ordered decode's as in phase 6), and one
+     ordered decode.
+
+Then, at 65536-sample blocks (16 atoms of width 32, 512 coefficients):
+
+ 11. encodes and decodes 4 blocks with CorpusEncoder(device='cuda'), whose
+     greedy loop keeps its selection cache in a global workspace (it does
+     not fit the card's shared memory), counted on its own: containers and
+     rows equal backend='torch', rows bitwise the oracle's integer decode.
 
 Every phase is fatal on failure.  The NumPy spec it checks against is the
 port's own copy (`hsc_torch.oracle`, `hsc_torch.io`); the script fails if
 JAX or any module of the JAX package `hsc_tpu` was imported.  Before the
 last line it prints one JSON object with every kernel (launches on the
-counted hierarchical path, error against the plain version, its time, the
-plain version's, the bound computed from this run's inputs and, where one
-PyTorch call computes the same function, that call's time), then the
+counted hierarchical path, error against the plain version, its time as
+phases 6 and 10 time it, its device time, the plain version's, the bound
+computed from this run's inputs and, where one PyTorch call computes the
+same function, that call's time), then the
 card's name and power limit.  The last line is one JSON object with the
 device.
 """
@@ -113,7 +128,9 @@ def run(cmd: list[str]) -> str:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of `fn` over `reps` calls (CUDA events)."""
+    """Mean milliseconds of `fn` over `reps` back-to-back calls between CUDA
+    events.  Where a call's host work outlasts its kernels (the decode
+    wrappers), this is the host's time per call, not the device's."""
     import torch
 
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -125,10 +142,35 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, launches: int = 20, replays: int = 10) -> float:
+    """Device milliseconds of one call of `fn`: `launches` calls captured in
+    one CUDA graph, replayed `replays` times between CUDA events, so that no
+    host work of the wrapper lies between the kernels."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm, outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * launches)
+
+
 def device_profile(fn, trace_path: str) -> dict:
     """Run `fn` under torch.profiler and read the device timeline back from
     its chrome trace: host wall ms, device-busy ms (union of kernel, memcpy
-    and memset intervals), device ms per kernel name, and device ms per
+    and memset intervals), device ms and launches per kernel name, and device ms per
     `torch.profiler.record_function` range (the kernels, copies and fills
     launched inside it, matched by their correlation ids)."""
     import os
@@ -156,12 +198,13 @@ def device_profile(fn, trace_path: str) -> dict:
             for name, spans_ in ranges.items():
                 if any(lo <= ts <= hi for lo, hi in spans_):
                     launched[e["args"]["correlation"]] = name
-    spans, by_name, by_range = [], {}, {name: 0.0 for name in ranges}
+    spans, by_name, n_by_name, by_range = [], {}, {}, {name: 0.0 for name in ranges}
     for e in events:
         if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e:
             spans.append((float(e["ts"]), float(e["ts"]) + float(e["dur"])))
             key = e["name"].replace("(anonymous namespace)::", "").split("(")[0][-40:]
             by_name[key] = by_name.get(key, 0.0) + float(e["dur"]) / 1e3
+            n_by_name[key] = n_by_name.get(key, 0) + 1
             name = launched.get(e.get("args", {}).get("correlation"))
             if name is not None:
                 by_range[name] += float(e["dur"]) / 1e3
@@ -170,7 +213,17 @@ def device_profile(fn, trace_path: str) -> dict:
         if hi > end:
             busy += hi - max(lo, end)
             end = hi
-    return {"wall_ms": wall_ms, "busy_ms": busy / 1e3, "by_name": by_name, "by_range": by_range}
+    return {"wall_ms": wall_ms, "busy_ms": busy / 1e3, "by_name": by_name, "n_by_name": n_by_name,
+            "by_range": by_range}
+
+
+def kernel_ms(prof: dict, *names: str) -> float:
+    """Device ms per launch of the kernels `names` (substrings of the
+    profile's kernel names; the first name's launches are counted)."""
+    total = sum(v for k, v in prof["by_name"].items() if any(n in k for n in names))
+    launches = sum(v for k, v in prof["n_by_name"].items() if names[0] in k)
+    check(launches > 0, f"the profile holds no launch of {names[0]}")
+    return total / launches
 
 
 def fresh_ms(make, fn, reps: int) -> float:
@@ -232,13 +285,14 @@ def stats(v, unit: str, fmt: str = ".4f") -> str:
     return f"{statistics.median(v):{fmt}} {unit} [{min(v):{fmt}}..{max(v):{fmt}}, n={len(v)}]"
 
 
-def profile_line(what: str, fn) -> str:
+def profile_line(what: str, fn) -> tuple[str, dict]:
+    """A profile of `fn` in one log line, and the profile."""
     prof = device_profile(fn, f"build/chip_smoke/trace_{what.replace(' ', '_')}.json")
     top = sorted(prof["by_name"].items(), key=lambda kv: -kv[1])[:6]
     ranges = "".join(f"; device ms in {k}: {v:.3f}" for k, v in sorted(prof["by_range"].items()))
     return (f"profiled {what}: wall {prof['wall_ms']:.2f} ms, device busy {prof['busy_ms']:.2f} ms "
             f"(idle {100 * (1 - prof['busy_ms'] / prof['wall_ms']):.1f}%); device ms by name: "
-            + ", ".join(f"{k} {v:.3f}" for k, v in top) + ranges)
+            + ", ".join(f"{k} {v:.3f}" for k, v in top) + ranges), prof
 
 
 def bits_equal(a, b) -> bool:
@@ -339,6 +393,46 @@ def loop_case(dev, bank, n_raw, sw, s0, e0, *, amp_bits=16, oracle_blocks=None, 
     return host, max_abs_diff(got, ref)
 
 
+def edge_decode_batch(dev, phase: int, what: str, kernel, plain, oracle, table: np.ndarray) -> float:
+    """One batch at the tiled decode kernels' edges (phases 4 and 8): blocks
+    of N = 70001 samples (past 65536; N % 4 != 0, so rows 1-3 start
+    unaligned), atoms of width 2500 (wider than a tile) and 3001 events a
+    block (M % 4 != 0; several staging chunks and a ragged one).  Block 0
+    has count 0; block 1 all M events on 8 positions of one tile (stream
+    order decides the ordered decode's bits); block 2 all M at uniform
+    positions; block 3 a ragged count with dead events (p < 0, p > N - W,
+    atoms out of range) before it.  The kernel bitwise
+    the plain version on all four blocks and `oracle(stream, n)` on blocks
+    0-2 (the stream's scale is the block's scalar).  Returns the kernel's
+    max |diff| to the plain version."""
+    import torch
+
+    from hsc_torch.ops.decode_kernel import TILE
+    from hsc_torch.oracle.mp import LevelStream
+
+    rng = np.random.default_rng(17)
+    k, w = table.shape[:2]
+    n, m = 70001, 3001
+    pos = rng.integers(0, n - w + 1, (4, m)).astype(np.int32)
+    pos[1] = rng.choice(rng.integers(20 * TILE, 21 * TILE, 8), m)
+    atm = rng.integers(0, k, (4, m)).astype(np.int32)
+    cds = rng.integers(-32767, 32768, (4, m)).astype(np.int32)
+    pos[3, 5], pos[3, 6], atm[3, 7], atm[3, 8] = -1, n - w + 1, k, -1
+    cnt = np.array([0, m, m, 2000], np.int32)
+    scalar = rng.uniform(1e-7, 1e-3, 4).astype(np.float32)
+    args = [torch.from_numpy(a).to(dev) for a in (pos, atm, cds, cnt, scalar, table)]
+    got, ref = kernel(*args, n=n), plain(*args, n=n)
+    torch.cuda.synchronize()
+    check(bits_equal(got, ref), f"{what} kernel != plain on the edge batch")
+    check(not got[0].any() and bool(got[1].any()), f"{what} edge batch: block 0 not empty or block 1 empty")
+    for b in range(3):
+        st = LevelStream(pos[b, :cnt[b]], atm[b, :cnt[b]], cds[b, :cnt[b]], scalar[b], 0.0, 0.0)
+        check(got[b].cpu().numpy().tobytes() == oracle(st, n).tobytes(), f"{what} edge batch != oracle at block {b}")
+    log(f"[{phase}] {what}: kernel == plain on an edge batch (N={n}, W={w}, "
+        f"M={m}; an empty block, {m} events in one tile, dead events), == oracle on its blocks 0-2")
+    return max_abs_diff([got], [ref])
+
+
 def sweep_edge_cases(dev) -> float:
     """Phase 3's edge cases of the one-pass sweep (see the module
     docstring); returns the largest kernel-vs-plain |diff| (0 when bitwise)."""
@@ -436,6 +530,7 @@ def hierarchy(dev, card: str):
         bank_quantize_int16,
         feature_map_int_from_events,
         int8_init_scores,
+        mp_decode,
         mp_decode_integer,
         mp_encode,
         rep_quantize,
@@ -537,6 +632,10 @@ def hierarchy(dev, card: str):
               f"ordered_decode != oracle at block {b}")
     log(f"[8] ordered_decode: kernel == plain == oracle.hierarchical_decode bitwise on {BATCH} top streams "
         f"(mean {float(enc1.count.float().mean()):.1f} events, bank {tuple(bank1.shape)})")
+    edge_bank = np.random.default_rng(6).standard_normal((5, 2500, 1)).astype(np.float32)
+    od_err = max(od_err, edge_decode_batch(dev, 8, "ordered_decode", decode_kernel.mp_decode_batch,
+                                           mp_decode_batch_torch, lambda st, n: mp_decode(st, edge_bank, n),
+                                           edge_bank))
 
     # ---- 9. the hierarchy end to end, counted ------------------------------
     mld_o = MultilevelDictionary.generate(dataclasses.replace(cfg, decode_mode="ordered"), seed=9)
@@ -655,8 +754,12 @@ def hierarchy(dev, card: str):
     bq64 = bq64.contiguous()
     in_lib = statistics.median([cuda_ms(lambda: F.conv1d(m64, bq64), 1) for _ in range(2)])
     del m64
-    od_k, od_p = turns(lambda: cuda_ms(lambda: decode_kernel.mp_decode_batch(*dec_args, n=cfg.block_size), 50),
+    def ordered_decode():
+        return decode_kernel.mp_decode_batch(*dec_args, n=cfg.block_size)
+
+    od_k, od_p = turns(lambda: (graph_ms(ordered_decode), cuda_ms(ordered_decode, 50)),
                        lambda: cuda_ms(lambda: mp_decode_batch_torch(*dec_args, n=cfg.block_size), 5), 4)
+    od_dev, od_host = [d for d, _ in od_k], [h for _, h in od_k]
     sc1_t, iv1_t = torch.from_numpy(sc1).to(dev), torch.from_numpy(iv1).to(dev)
     l1_k, l1_p = turns(
         lambda: fresh_ms(s0_1.clone, lambda s: mp_kernels.mp_loop(s, e0_1, sc1_t, iv1_t, mp1.params, **mp1.settings), 3),
@@ -682,7 +785,8 @@ def hierarchy(dev, card: str):
         f"{stats(in_p, 'ms')}; bound {init_bound['bound_ms']:.4f} ms by {init_bound['bound_by']}")
     log(f"[10] (float64 conv1d of the map against the bank codes, one call: {in_lib:.3f} ms; "
         f"the level-0 -> level-1 hand-off: {handoff_ms:.4f} ms of device time per batch)")
-    log(f"[10] ordered decode, one {BATCH}-block batch of top streams: kernel {stats(od_k, 'ms')}, "
+    log(f"[10] ordered decode, one {BATCH}-block batch of top streams: kernel device time {stats(od_dev, 'ms')} "
+        f"(CUDA graph of 20 launches), host time per call {stats(od_host, 'ms')} (50 back-to-back calls), "
         f"plain {stats(od_p, 'ms')}")
     log(f"[10] greedy loop at level 1, one {BATCH}-block batch (K={mld.num_atoms(1)}, W={cfg.window_sizes[1]}, "
         f"{int(enc1.count.sum())} events): kernel {stats(l1_k, 'ms')}, plain {stats(l1_p, 'ms')}; "
@@ -701,9 +805,13 @@ def hierarchy(dev, card: str):
 
     coder.handoff = annotated_handoff  # the profile splits out the hand-offs' device time
     try:
-        log("[10] " + profile_line("hierarchical encode", lambda: codec.encode(xs)))
+        line, prof = profile_line("hierarchical encode", lambda: codec.encode(xs))
+        log("[10] " + line)
     finally:
         del coder.handoff
+    # device time of one int8 init: its score kernel and cell kernel
+    init_dev_ms = kernel_ms(prof, "score_kernel", "cell_kernel")
+    log("[10] " + profile_line("hierarchical ordered decode", lambda: codec_o.decode(blob_o))[0])
     ev1 = int(enc1.count.sum())
     od_bound = card_bound(12 * ev1 + 8 * BATCH + 4 * (bank1.numel() + got.numel()), 3 * ev1 * int(bank1.shape[1]))
     kernels = [
@@ -711,13 +819,60 @@ def hierarchy(dev, card: str):
          "replaces": "hsc_tpu/ops/init_kernels.py:76, hsc_tpu/ops/encode.py:479",
          "launches": launches["sparse_init"],
          "max_abs_err": init_err, "e0_max_rel_err": e0_rel, "ms": statistics.median(in_k),
-         "plain_ms": statistics.median(in_p), **init_bound, "library_ms": in_lib},
+         "device_ms": init_dev_ms, "plain_ms": statistics.median(in_p), **init_bound, "library_ms": in_lib},
         {"name": "ordered_decode", "route": "cuda", "source": "hsc_torch/csrc/ordered_decode.cu",
          "replaces": "hsc_tpu/ops/decode_kernel.py:33", "launches": launches["ordered_decode"],
-         "max_abs_err": od_err, "ms": statistics.median(od_k), "plain_ms": statistics.median(od_p),
-         **od_bound, "library_ms": None},
+         "max_abs_err": od_err, "ms": statistics.median(od_host), "device_ms": statistics.median(od_dev),
+         "plain_ms": statistics.median(od_p), **od_bound, "library_ms": None},
     ]
     return kernels, launches
+
+
+def large_block(dev) -> None:
+    """Phase 11: the single-level codec at 65536-sample blocks (16 atoms of
+    width 32, 512 coefficients, num_select=8, integer decode; dictionary
+    seed 21, signals seed 23), whose greedy loop keeps its selection cache
+    in a global workspace (it does not fit the card's shared memory), on
+    its own counted run."""
+    import torch
+
+    from hsc_torch import MultilevelDictionary, SignalGenerator, _build, make_test_config
+    from hsc_torch.io import unpack_corpus
+    from hsc_torch.ops import decode_integer_kernel, mp_kernels
+    from hsc_torch.oracle.mp import mp_decode_integer, rep_quantize
+    from hsc_torch.runtime import CorpusEncoder
+    from hsc_torch.utils import snr_db
+
+    cfg = make_test_config(counts=(16,), scales=(32,), block_size=65536, num_coefs=(512,), num_select=8)
+    check(cfg.decode_mode == "integer", "the 65536-sample config resolved to another decode mode")
+    mld = MultilevelDictionary.generate(cfg, seed=21)
+    xs = SignalGenerator(mld, rates=2e-3).generate_signals(4, cfg.block_size, seed=23)
+    ws = _build.load().hsc_mp_encode_workspace(mld.num_atoms(0), cfg.num_positions(0), cfg.num_select)
+    check(ws > 0, f"the selection cache of npos {cfg.num_positions(0)} fits shared memory (workspace {ws})")
+    codec = CorpusEncoder(mld, device=dev)
+    mp_kernels.LAUNCHES = 0
+    decode_integer_kernel.LAUNCHES = 0
+    t0 = time.perf_counter()
+    blob = codec.encode(xs)
+    rows = codec.decode(blob)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"mp_encode": mp_kernels.LAUNCHES, "int_decode": decode_integer_kernel.LAUNCHES}
+    check(all(v > 0 for v in launches.values()), f"a kernel of the 65536-sample path was never launched: {launches}")
+    plain = CorpusEncoder(mld, device=dev, backend="torch")
+    check(plain.encode(xs) == blob, "65536-sample blocks: backend='torch' container != backend='cuda' container")
+    check(plain.decode(blob).tobytes() == rows.tobytes(), "65536-sample blocks: backend='torch' rows != cuda rows")
+    hdr, blocks = unpack_corpus(blob)
+    rep_q, step = rep_quantize(mld.representations(0)[:, :, None], hdr.rep_bits)
+    for b, ((_, st),) in enumerate(blocks):
+        check(st.positions.shape[0] > 0, f"65536-sample block {b} emitted no events")
+        check(rows[b].tobytes() == mp_decode_integer(st, rep_q, step, cfg.block_size)[:, 0].tobytes(),
+              f"65536-sample decode != oracle at block {b}")
+    events = sum(int(s[0][1].positions.shape[0]) for s in blocks)
+    snr = float(np.mean([snr_db(xs[b], rows[b]) for b in range(len(blocks))]))
+    log(f"[11] 65536-sample blocks (selection cache in a {ws}-byte global slice per block): launches {launches}; "
+        f"4 blocks -> {len(blob)} bytes, {events} events, mean SNR {snr:.3f} dB, encode + decode {wall:.2f} s; "
+        f"containers and rows == backend='torch', rows == oracle integer decode")
 
 
 def main() -> int:
@@ -729,7 +884,7 @@ def main() -> int:
 
     from hsc_torch import MultilevelDictionary, SignalGenerator, make_test_config
     from hsc_torch import _build
-    from hsc_torch.ops import decode_integer_kernel, mp_kernels
+    from hsc_torch.ops import decode_integer_kernel, decode_kernel, mp_kernels
     from hsc_torch.ops.decode import mp_decode_integer_batch_torch
     from hsc_torch.ops.encode import encode_init_batched, mp_encode_from_init_torch, quantizer_steps
     from hsc_torch.params import level_params_from_mld
@@ -849,6 +1004,10 @@ def main() -> int:
         check(got_w[b].cpu().numpy().tobytes() == o.tobytes(), f"wraparound block {b} != oracle")
     check(bool((got_w[0] < 0).any()), "the wraparound batch did not wrap")
     dec_err = max_abs_diff([got, got_w], [ref, mp_decode_integer_batch_torch(*t_args, n=cfg.block_size)])
+    edge_rep = np.random.default_rng(5).integers(-4095, 4096, (5, 2500, 1)).astype(np.int32)
+    dec_err = max(dec_err, edge_decode_batch(
+        dev, 4, "int_decode", decode_integer_kernel.mp_decode_integer_batch, mp_decode_integer_batch_torch,
+        lambda st, n: mp_decode_integer(st, edge_rep, np.float32(1), n), edge_rep))
     log(f"[4] int_decode: kernel == plain == oracle bitwise on {BATCH} encoded blocks and a wrapping batch")
 
     # ---- 5. the main path, counted -----------------------------------------
@@ -882,9 +1041,14 @@ def main() -> int:
         lambda: fresh_ms(s0.clone, lambda s: mp_kernels.mp_loop(s, e0, scale, inv, params, **kw8), 3),
         lambda: fresh_ms(lambda: s0, lambda s: mp_encode_from_init_torch(s, e0, scale, inv, params, **kw8), 1),
         4)
-    dec_k, dec_p = turns(
-        lambda: cuda_ms(lambda: decode_integer_kernel.mp_decode_integer_batch(*dec_args, n=cfg.block_size), 50),
-        lambda: cuda_ms(lambda: mp_decode_integer_batch_torch(*dec_args, n=cfg.block_size), 10), 4)
+    def int_decode():
+        return decode_integer_kernel.mp_decode_integer_batch(*dec_args, n=cfg.block_size)
+
+    # the kernel's device time (a CUDA graph of 20 launches) and the host
+    # time per call (50 back-to-back calls), in turns with the plain version
+    dec_k, dec_p = turns(lambda: (graph_ms(int_decode), cuda_ms(int_decode, 50)),
+                         lambda: cuda_ms(lambda: mp_decode_integer_batch_torch(*dec_args, n=cfg.block_size), 10), 4)
+    dec_dev, dec_host = [d for d, _ in dec_k], [h for _, h in dec_k]
     mb = N_BLOCKS * cfg.block_size * 4 / 1e6
     plain = CorpusEncoder(mld, device="cuda", backend="torch")
     check(plain.encode(xs) == blob, "backend='torch' container != backend='cuda' container")
@@ -894,29 +1058,39 @@ def main() -> int:
     dc_k, dc_p = turns(lambda: mb / wall_s(lambda: codec.decode(blob)),
                        lambda: mb / wall_s(lambda: plain.decode(blob)), 4)
     mp_ms, mp_plain_ms = statistics.median(mp_k), statistics.median(mp_p)
-    dec_ms, dec_plain_ms = statistics.median(dec_k), statistics.median(dec_p)
+    dec_ms, dec_dev_ms, dec_plain_ms = statistics.median(dec_host), statistics.median(dec_dev), statistics.median(dec_p)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ctas = BATCH * -(-cfg.block_size // decode_kernel.TILE)
+    check(ctas >= sms, f"a {BATCH}-block decode is {ctas} CTAs, fewer than the card's {sms} SMs")
     mp_bound = loop_bound(s0, params, enc)
     ev = int(enc.count.sum())
     dec_bound = card_bound(12 * ev + 8 * BATCH + 4 * (rep_q.numel() + got.numel()), 2 * ev * int(rep_q.shape[1]))
     log(f"[6] card {card}")
     log(f"[6] greedy loop, one {BATCH}-block batch (ns=8, {ev} events): kernel {stats(mp_k, 'ms')}, "
         f"plain {stats(mp_p, 'ms')}; bound {mp_bound['bound_ms']:.4f} ms by {mp_bound['bound_by']}")
-    log(f"[6] integer decode, one {BATCH}-block batch: kernel {stats(dec_k, 'ms')}, plain {stats(dec_p, 'ms')}")
+    log(f"[6] integer decode, one {BATCH}-block batch ({ctas} CTAs on {sms} SMs): kernel device time "
+        f"{stats(dec_dev, 'ms')} (CUDA graph of 20 launches), host time per call {stats(dec_host, 'ms')} "
+        f"(50 back-to-back calls), plain {stats(dec_p, 'ms')}; bound {dec_bound['bound_ms']:.5f} ms by "
+        f"{dec_bound['bound_by']}")
     log(f"[6] CorpusEncoder.encode, {N_BLOCKS} blocks, host wall: cuda {stats(enc_k, 'MB/s', '.2f')}, "
         f"torch {stats(enc_p, 'MB/s', '.2f')}")
     log(f"[6] CorpusEncoder.decode, {N_BLOCKS} blocks, host wall: cuda {stats(dc_k, 'MB/s', '.2f')}, "
         f"torch {stats(dc_p, 'MB/s', '.2f')}")
     log(f"[6] device-only rates: greedy loop {BATCH * cfg.block_size * 4 / 1e3 / mp_ms:.2f} MB/s, "
-        f"integer decode {BATCH * cfg.block_size * 4 / 1e3 / dec_ms:.2f} MB/s")
+        f"integer decode {BATCH * cfg.block_size * 4 / 1e3 / dec_dev_ms:.2f} MB/s")
     x_dev = torch.from_numpy(xb[:, :, None]).to(dev)
     init_ms = cuda_ms(lambda: encode_init_batched(x_dev, params.bank), 5)
     log(f"[6] init (conv + energy + peak), one {BATCH}-block batch: {init_ms:.3f} ms")
+    profs = {}
     for what, fn in (("encode", lambda: codec.encode(xs)), ("decode", lambda: codec.decode(blob))):
-        log("[6] " + profile_line(what, fn))
+        line, profs[what] = profile_line(what, fn)
+        log("[6] " + line)
+    mp_dev_ms = kernel_ms(profs["encode"], "mp_encode_kernel")
 
     # the JSON line reports every kernel's launches on the hierarchical path
     # (phase 9), which runs all four; phase 5's counts were checked above
     hier_kernels, launches = hierarchy(dev, card)
+    large_block(dev)
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "hsc_tpu"))
     check(not loaded, f"JAX or the JAX package was imported: {loaded}")
@@ -925,10 +1099,12 @@ def main() -> int:
     kernels = [
         {"name": "mp_encode", "route": "cuda", "source": "hsc_torch/csrc/mp_encode.cu",
          "replaces": "hsc_tpu/ops/mp_kernels.py:83", "launches": launches["mp_encode"],
-         "max_abs_err": mp_err, "ms": mp_ms, "plain_ms": mp_plain_ms, **mp_bound, "library_ms": None},
+         "max_abs_err": mp_err, "ms": mp_ms, "device_ms": mp_dev_ms, "plain_ms": mp_plain_ms, **mp_bound,
+         "library_ms": None},
         {"name": "int_decode", "route": "cuda", "source": "hsc_torch/csrc/int_decode.cu",
          "replaces": "hsc_tpu/ops/decode_integer_kernel.py:61", "launches": launches["int_decode"],
-         "max_abs_err": dec_err, "ms": dec_ms, "plain_ms": dec_plain_ms, **dec_bound, "library_ms": None},
+         "max_abs_err": dec_err, "ms": dec_ms, "device_ms": dec_dev_ms, "plain_ms": dec_plain_ms, **dec_bound,
+         "library_ms": None},
         *hier_kernels,
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -17,6 +17,7 @@ reproducibility"); the kernels also spell the roundings out with
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -49,8 +50,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # pointers, then ints/floats, then the stream; returns cudaError_t
-    "hsc_mp_encode": [_P] * 11 + [_I] * 6 + [_F, _I, _F, _P],
+    # pointers, then ints/floats, then the stream; returns cudaError_t (the
+    # workspace query returns bytes, or a cudaError_t negated)
+    "hsc_mp_encode": [_P] * 11 + [_I] * 6 + [_F, _I, _F, _P, _P],
+    "hsc_mp_encode_workspace": [_I] * 3,
     "hsc_int_decode": [_P] * 7 + [_I] * 5 + [_P],
     "hsc_int8_init": [_P] * 10 + [_F] + [_I] * 7 + [_P],
     "hsc_ordered_decode": [_P] * 7 + [_I] * 5 + [_P],
@@ -75,7 +78,7 @@ def _sources() -> list[str]:
 
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(glob.glob(os.path.join(_CSRC, "*.cuh"))):
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + f.read())
     return os.path.join(_BUILD_ROOT, h.hexdigest()[:16], "libhsc_torch_kernels.so")
@@ -84,6 +87,8 @@ def library_path() -> str:
 def load() -> ctypes.CDLL:
     """The kernel library, built first if needed.  Raises on any failure."""
     global _lib, BUILD_LOG, BUILD_SECONDS
+    if _lib is not None:  # the wrappers call this on every launch
+        return _lib
     with _lock:
         if _lib is not None:
             return _lib
@@ -128,6 +133,20 @@ def load() -> ctypes.CDLL:
         lib.hsc_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
         return lib
+
+
+def launch(name: str, device, *args) -> None:
+    """Call the C entry point `name` with `args` and the current stream of
+    CUDA `device` (the kernel launches on that device), and raise if it
+    returns an error."""
+    import torch
+
+    lib = load()
+    # a device switch is host work on every call: only when needed
+    same = device.index == torch.cuda.current_device()
+    with contextlib.nullcontext() if same else torch.cuda.device(device):
+        err = getattr(lib, name)(*args, torch.cuda.current_stream(device).cuda_stream)
+    check(lib, err, f"{name} launch")
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

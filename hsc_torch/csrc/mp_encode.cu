@@ -18,9 +18,13 @@
 // barriers and memory round trips sets the time.  The scores stay in global
 // memory (4.2 MB per block is far beyond 227 KB of shared memory) and are
 // updated IN PLACE: the caller's buffer is the loop state.  The selection
-// cache lives in shared memory: per position the largest |score| * weight
-// over the atoms (f32) and the lowest atom that reaches it (u16), 6 bytes
-// per position (96 KB at npos 16353; npos up to ~38,000 fits).  Measured
+// cache holds per position the largest |score| * weight over the atoms (f32)
+// and the lowest atom that reaches it (u16), 6 bytes per position (96 KB at
+// npos 16353).  It lives in shared memory where it fits the card's opt-in
+// limit (npos up to ~38,000 at 227 KB); a longer block keeps it in a
+// per-block slice of a global workspace that the wrapper allocates, with the
+// same code and arithmetic (L1 and L2 serve it), so no block size is refused.
+// Measured
 // (scripts/torch_mp_loop_phases.py): phase D below, which reads and writes
 // the K x (2W-1) scores of every accepted window in device memory (0.53 GB
 // each way per 64-block batch at the flat flagship, 0.62 GB at level 1),
@@ -193,6 +197,12 @@ __device__ __forceinline__ void column_max(float* col, const float* grow, float 
   }
 }
 
+// the selection cache's bytes: npos rounded up to a multiple of 128 (a
+// multiple of 768 bytes, so what follows it stays 16-byte aligned)
+__host__ __device__ __forceinline__ size_t cache_bytes(int npos) {
+  return static_cast<size_t>((npos + 127) / 128 * 128) * (sizeof(float) + sizeof(unsigned short));
+}
+
 __global__ void __launch_bounds__(kThreads, 1)
 mp_encode_kernel(float* __restrict__ scores,        // [B, K, npos], in place
                  const float* __restrict__ e0,      // [B]
@@ -205,15 +215,20 @@ mp_encode_kernel(float* __restrict__ scores,        // [B, K, npos], in place
                  int* __restrict__ codes,           // [B, M]
                  int* __restrict__ count_out,       // [B]
                  float* __restrict__ eres_out,      // [B]
+                 unsigned char* __restrict__ cache_ws,  // [B, cache bytes] or null
                  int K, int W, int npos, int M, int S, int seg_len, int span,
                  float maxcode, int has_tol, float snr_factor) {
   // the selection cache holds npos rounded up to a multiple of 128, a whole
-  // phase-A step (entries past npos are never taken as candidates)
+  // phase-A step (entries past npos are never taken as candidates); in shared
+  // memory, or in this block's slice of cache_ws (16-byte aligned: 6 * ncache
+  // is a multiple of 16, and so is the workspace's base)
   extern __shared__ __align__(16) unsigned char smem[];
   const int ncache = (npos + 127) / 128 * 128;
-  float* colmax = reinterpret_cast<float*>(smem);                          // [ncache]
+  unsigned char* cache = cache_ws ? cache_ws + blockIdx.x * cache_bytes(npos) : smem;
+  float* colmax = reinterpret_cast<float*>(cache);                          // [ncache]
   unsigned short* colarg = reinterpret_cast<unsigned short*>(colmax + ncache);  // [ncache]
-  unsigned long long* cand = reinterpret_cast<unsigned long long*>(colarg + ncache);  // [S]
+  unsigned long long* cand =
+      reinterpret_cast<unsigned long long*>(cache_ws ? smem : smem + cache_bytes(npos));  // [S]
   float* wsh = reinterpret_cast<float*>(cand + S);  // [K] selection weights
   float* cand_s = wsh + K;          // [S] score at (f, t)
   float* cand_c = cand_s + S;       // [S] c_hat = code * scale
@@ -411,29 +426,79 @@ mp_encode_kernel(float* __restrict__ scores,        // [B, K, npos], in place
   }
 }
 
+// the shared memory beside the selection cache: the candidates, weights and
+// per-candidate scratch
+size_t rest_bytes(int K, int S) {
+  return sizeof(unsigned long long) * S + sizeof(float) * K + sizeof(int) * 10 * S;
+}
+
+// The most dynamic shared memory a launch may ask for on the current device:
+// the card's opt-in limit per block less the kernel's static shared memory.
+// On first use on a device it also lifts the kernel's limit to that, once,
+// so that no launch sets a function attribute.
+cudaError_t dynamic_smem_limit(int* bytes) {
+  constexpr int kMaxDevices = 64;
+  static int limit[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && limit[dev] > 0) {
+    *bytes = limit[dev];
+    return cudaSuccess;
+  }
+  int optin = 0;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, mp_encode_kernel);
+  if (err != cudaSuccess) return err;
+  const int v = optin - static_cast<int>(fa.sharedSizeBytes);
+  err = cudaFuncSetAttribute(mp_encode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, v);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices) limit[dev] = v;
+  *bytes = v;
+  return cudaSuccess;
+}
+
 }  // namespace
 
+// Bytes of global workspace per block that a launch at (K, npos, S) needs for
+// its selection cache on the current device: 0 when the cache fits in shared
+// memory beside the rest, else the cache's size (a multiple of 16); a CUDA
+// error is returned negated.
+extern "C" int hsc_mp_encode_workspace(int K, int npos, int S) {
+  if (K < 1 || npos < 1 || S < 1) return -static_cast<int>(cudaErrorInvalidValue);
+  int limit = 0;
+  const cudaError_t err = dynamic_smem_limit(&limit);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  if (cache_bytes(npos) + rest_bytes(K, S) <= static_cast<size_t>(limit)) return 0;
+  return static_cast<int>(cache_bytes(npos));
+}
+
+// `cache_ws`: null, or B slices of hsc_mp_encode_workspace(K, npos, S) bytes
+// (16-byte aligned) that hold the selection caches instead of shared memory.
 extern "C" int hsc_mp_encode(float* scores, const float* e0, const float* scale,
                              const float* inv, const float* gram_t,
                              const float* weights, int* positions, int* atoms,
                              int* codes, int* count, float* e_res, int B, int K,
                              int W, int npos, int M, int S, float maxcode,
-                             int has_tol, float snr_factor, void* stream) {
+                             int has_tol, float snr_factor, void* cache_ws, void* stream) {
   if (B == 0) return cudaSuccess;
   // atoms are cached as 16-bit indexes
   if (K < 1 || K > 65535 || W < 1 || npos < 1 || M < 0 || S < 1) return cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(cache_ws) % 16 != 0) return cudaErrorMisalignedAddress;
   const int seg_len = 128 * ((npos + 128 * S - 1) / (128 * S));
   // each warp's phase-A run: whole 128-position steps
   const int span = 128 * ((npos + kWarps * 128 - 1) / (kWarps * 128));
-  const size_t ncache = static_cast<size_t>((npos + 127) / 128 * 128);
-  const size_t smem = ncache * (sizeof(float) + sizeof(unsigned short)) +
-                      sizeof(unsigned long long) * S + sizeof(float) * K + sizeof(int) * 10 * S;
-  cudaError_t err = cudaFuncSetAttribute(
-      mp_encode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  const size_t smem = rest_bytes(K, S) + (cache_ws ? 0 : cache_bytes(npos));
+  int limit = 0;
+  const cudaError_t err = dynamic_smem_limit(&limit);
   if (err != cudaSuccess) return err;
+  if (smem > static_cast<size_t>(limit)) return cudaErrorInvalidValue;  // needs a workspace
   mp_encode_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       scores, e0, scale, inv, gram_t, weights, positions, atoms, codes, count, e_res,
-      K, W, npos, M, S, seg_len, span, maxcode, has_tol, snr_factor);
+      static_cast<unsigned char*>(cache_ws), K, W, npos, M, S, seg_len, span, maxcode, has_tol,
+      snr_factor);
   return cudaGetLastError();
 }
 

@@ -6,7 +6,9 @@
 version (`ops.decode.mp_decode_integer_batch_torch`); a CUDA tensor launches
 the kernel or raises — there is no fallback.  Like the Pallas wrapper, the
 kernel takes single-channel representation tables only (C == 1, which is
-every signal-space representation bank).
+every signal-space representation bank).  It takes any atom width and any
+block length: it tiles the block as the ordered decode does
+(`csrc/decode_tiles.cuh`), and no shared-memory size depends on either.
 """
 
 from __future__ import annotations
@@ -56,14 +58,9 @@ def mp_decode_integer_batch(
     check_tensor(rep_q, "rep_q", torch.int32, (k, w, 1), dev)
 
     out = torch.empty((b, n, 1), dtype=torch.float32, device=dev)
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.hsc_int_decode(
-            positions.data_ptr(), atoms.data_ptr(), codes.data_ptr(),
-            count.data_ptr(), amp_step.data_ptr(), rep_q.data_ptr(),
-            out.data_ptr(), b, m, k, w, int(n), stream,
-        )
-    _build.check(lib, err, "hsc_int_decode launch")
+    _build.launch(
+        "hsc_int_decode", dev, positions.data_ptr(), atoms.data_ptr(), codes.data_ptr(),
+        count.data_ptr(), amp_step.data_ptr(), rep_q.data_ptr(), out.data_ptr(), b, m, k, w, int(n),
+    )
     LAUNCHES += 1
     return out

@@ -6,7 +6,9 @@
 (`ops.decode.mp_decode_batch_torch`); a CUDA tensor launches the kernel or
 raises — there is no fallback.  Like the Pallas wrapper, the kernel takes
 single-channel banks only (C == 1, which is every signal-space
-representation bank); it takes any atom width, wider than a CTA included.
+representation bank); it takes any atom width and any block length (a
+CTA owns a tile of `TILE` samples, and no shared-memory size depends on
+either).
 """
 
 from __future__ import annotations
@@ -19,6 +21,9 @@ from .mp_kernels import check_tensor
 
 # kernel launches since import (or since a caller reset it to 0)
 LAUNCHES = 0
+# samples one CTA of either decode kernel owns (kTile in
+# csrc/decode_tiles.cuh): a 64-block flagship batch is 1024 CTAs
+TILE = 1024
 
 
 def mp_decode_batch(
@@ -54,14 +59,9 @@ def mp_decode_batch(
     check_tensor(bank, "bank", torch.float32, (k, w, 1), dev)
 
     out = torch.empty((b, n, 1), dtype=torch.float32, device=dev)
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.hsc_ordered_decode(
-            positions.data_ptr(), atoms.data_ptr(), codes.data_ptr(),
-            count.data_ptr(), scale.data_ptr(), bank.data_ptr(),
-            out.data_ptr(), b, m, k, w, int(n), stream,
-        )
-    _build.check(lib, err, "hsc_ordered_decode launch")
+    _build.launch(
+        "hsc_ordered_decode", dev, positions.data_ptr(), atoms.data_ptr(), codes.data_ptr(),
+        count.data_ptr(), scale.data_ptr(), bank.data_ptr(), out.data_ptr(), b, m, k, w, int(n),
+    )
     LAUNCHES += 1
     return out

@@ -96,16 +96,12 @@ def int8_init(
     peak_bits = torch.empty((b,), dtype=torch.int32, device=dev)
     n_index = -(-n_map // INDEX_STRIDE) + 1
     work = torch.empty((2 * b * m + b * n_index,), dtype=torch.int32, device=dev)
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.hsc_int8_init(
-            positions.data_ptr(), atoms.data_ptr(), codes.data_ptr(), count.data_ptr(),
-            prev_scale.data_ptr(), planes_cnw.data_ptr(), work.data_ptr(), scores0.data_ptr(),
-            e0.data_ptr(), peak_bits.data_ptr(), float(step), b, m, n_map, c, n_raw, w,
-            n_index, stream,
-        )
-    _build.check(lib, err, "hsc_int8_init launch")
+    _build.launch(
+        "hsc_int8_init", dev, positions.data_ptr(), atoms.data_ptr(), codes.data_ptr(),
+        count.data_ptr(), prev_scale.data_ptr(), planes_cnw.data_ptr(), work.data_ptr(),
+        scores0.data_ptr(), e0.data_ptr(), peak_bits.data_ptr(), float(step), b, m, n_map, c,
+        n_raw, w, n_index,
+    )
     LAUNCHES += 1
     # non-negative floats order like their bits: the kernels' integer max of
     # the bits of |score| is the float max

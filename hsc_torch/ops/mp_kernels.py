@@ -14,6 +14,11 @@ buffer (268 MB per 64-block flagship batch, 400 MB at level 1 of the
 flagship hierarchy) before every launch.  Neither encode pipeline reads an
 init after its loop; a caller that does passes a clone.  JAX arrays are
 immutable, so the JAX package has no such contract.
+
+The kernel keeps its selection cache (6 bytes per position) in shared
+memory where that fits the card; for a longer block `mp_loop` allocates a
+global workspace for it (`hsc_mp_encode_workspace` says how much), so every
+block size the JAX package encodes runs on the card too.
 """
 
 from __future__ import annotations
@@ -31,6 +36,8 @@ LAUNCHES = 0
 def check_tensor(t: torch.Tensor, name: str, dtype, shape, device, contiguous=True) -> None:
     """Raise unless `t` has the device, dtype and shape a kernel takes (and
     is contiguous, where the kernel reads it in place)."""
+    if t.device == device and t.dtype == dtype and t.shape == shape and (not contiguous or t.is_contiguous()):
+        return
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -96,6 +103,12 @@ def mp_loop(
     )
     lib = _build.load()
     with torch.cuda.device(dev):
+        ws_bytes = lib.hsc_mp_encode_workspace(k, npos, int(num_select))
+        if ws_bytes < 0:
+            _build.check(lib, -ws_bytes, "hsc_mp_encode_workspace")
+        # B slices of the selection cache; torch's allocations are 16-byte
+        # aligned and the slice size is a multiple of 16
+        ws = torch.empty(b * ws_bytes, dtype=torch.uint8, device=dev) if ws_bytes else None
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.hsc_mp_encode(
             scores.data_ptr(), e0.data_ptr(), scale.data_ptr(),
@@ -104,7 +117,8 @@ def mp_loop(
             codes.data_ptr(), count.data_ptr(), e_res.data_ptr(),
             b, k, w, npos, int(num_coefs), int(num_select),
             float((1 << (amp_bits - 1)) - 1),
-            int(tolerance_snr is not None), float(snr_factor), stream,
+            int(tolerance_snr is not None), float(snr_factor),
+            None if ws is None else ws.data_ptr(), stream,
         )
     _build.check(lib, err, "hsc_mp_encode launch")
     LAUNCHES += 1

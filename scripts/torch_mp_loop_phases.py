@@ -47,8 +47,9 @@ def build_instrumented(src: str, tag: int):
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed:\n{proc.stdout}{proc.stderr}")
     lib = ctypes.CDLL(lib_path)
-    lib.hsc_mp_encode.argtypes = _build._SIGNATURES["hsc_mp_encode"]
-    lib.hsc_mp_encode.restype = ctypes.c_int
+    for name in ("hsc_mp_encode", "hsc_mp_encode_workspace"):
+        getattr(lib, name).argtypes = _build._SIGNATURES[name]
+        getattr(lib, name).restype = ctypes.c_int
     lib.hsc_mp_phase_cycles.argtypes = [ctypes.c_void_p]
     lib.hsc_mp_phase_cycles.restype = ctypes.c_int
     lib.hsc_cuda_error_string.argtypes = [ctypes.c_int]

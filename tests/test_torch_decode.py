@@ -103,3 +103,26 @@ def test_single_block_form_and_cpu_dispatch(mld1):
         args[0][1], args[1][1], args[2][1], args[3][1], args[4][1], rq, n=cfg.block_size
     )
     assert torch.equal(one, batch[1])
+
+
+@pytest.mark.parametrize("n", [65536])
+def test_integer_decode_large_block_vs_jax(n):
+    """A block past the old card kernel's shared-memory ceiling: the plain
+    decode bitwise the JAX package's XLA path on random events (every
+    position up to the last placement, full-range codes and reps, ragged
+    counts and an empty block)."""
+    rng = np.random.default_rng(n)
+    b, m, k, w = 3, 700, 24, 48
+    rep_q = rng.integers(-4095, 4096, size=(k, w, 1)).astype(np.int32)
+    arrs = (
+        rng.integers(0, n - w + 1, size=(b, m)).astype(np.int32),
+        rng.integers(0, k, size=(b, m)).astype(np.int32),
+        rng.integers(-32767, 32768, size=(b, m)).astype(np.int32),
+        np.array([m, 333, 0], np.int32),
+        rng.uniform(1e-9, 1e-3, size=b).astype(np.float32),
+    )
+    got = mp_decode_integer_batch_torch(*[torch.from_numpy(a) for a in arrs], torch.from_numpy(rep_q), n=n)
+    xla = mp_decode_integer_batch_jax(*[jnp.asarray(a) for a in arrs], jnp.asarray(rep_q), n=n)
+    assert got.shape == (b, n, 1)
+    assert got.numpy().tobytes() == np.asarray(xla).tobytes()
+    assert got[:2].any() and not got[2].any()

@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from hsc_tpu import SignalGenerator
+from hsc_tpu import MultilevelDictionary, SignalGenerator, make_test_config
 from hsc_tpu.ops.encode import batched_loop_for
 from hsc_tpu.ops.encode import encode_init_batched as jax_init
 from hsc_tpu.ops.mp_kernels import mp_encode_pallas, pallas_num_select_options
@@ -127,3 +127,35 @@ def test_loop_leaves_scores0_intact_and_dispatch_on_cpu(mld1, port_mld1):
     assert mp_kernels.LAUNCHES == before
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     assert args[0].numpy().tobytes() == s0.tobytes()
+
+
+@pytest.mark.parametrize("block_size", [65536])
+def test_loop_large_block_vs_xla_oracle(block_size):
+    """A block whose selection cache does not fit the card's shared memory
+    (the kernel then keeps it in a global workspace): the plain loop, given
+    JAX's init, is bitwise the oracle and gives the XLA loop's events."""
+    cfg = make_test_config(counts=(8,), scales=(16,), block_size=block_size, num_coefs=(32,), num_select=4)
+    mld = MultilevelDictionary.generate(cfg, seed=3)
+    port = dictionary_from_arrays(cfg.to_json(), mld.dicts)
+    xs = SignalGenerator(mld, rates=1e-3).generate_signals(2, block_size, seed=61)
+    s0, e0, peak = _jax_init(mld, xs)
+    scale, inv = quantizer_steps(peak, cfg.amp_bits)
+    settings = dict(num_coefs=32, amp_bits=cfg.amp_bits, tolerance_snr=None, num_select=4)
+    got = mp_encode_from_init_torch(
+        *(torch.tensor(a) for a in (s0, e0, scale, inv)), level_params_from_mld(port, 0, "cpu"), **settings
+    )
+    got = {f: getattr(got, f).numpy() for f in FIELDS + ("energy_res",)}
+    xla = batched_loop_for(tuple(sorted(dict(settings, singleton_weight=1.0, n_raw=8).items())))(
+        jnp.asarray(s0), jnp.asarray(e0), jnp.asarray(scale), jnp.asarray(inv), jnp.asarray(mld.augmented(0)),
+        jnp.asarray(np.ascontiguousarray(mld.gram(0).transpose(1, 0, 2))),
+    )
+    for f in FIELDS:
+        assert got[f].tobytes() == np.asarray(getattr(xla, f)).tobytes(), f
+    for b in range(2):
+        ref = oracle_encode_pinned(xs[b][:, None], mld, num_select=4)
+        n = got["count"][b]
+        assert n == ref.positions.shape[0] == 32
+        assert got["positions"][b, :n].tobytes() == ref.positions.tobytes()
+        assert got["atoms"][b, :n].tobytes() == ref.atoms.tobytes()
+        assert got["codes"][b, :n].tobytes() == ref.codes.tobytes()
+        assert got["energy_res"][b] == np.float32(ref.energy_res)

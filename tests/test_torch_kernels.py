@@ -18,6 +18,7 @@ import torch
 
 from hsc_torch import MultilevelDictionary, SignalGenerator, make_test_config
 from hsc_torch.dictionary import bank_gram
+from hsc_torch.io import unpack_corpus
 from hsc_torch.oracle.mp import (
     LevelStream,
     balanced_digits,
@@ -26,10 +27,12 @@ from hsc_torch.oracle.mp import (
     mp_decode,
     mp_decode_integer,
     mp_encode,
+    rep_quantize,
 )
 
 from hsc_torch.ops import decode_integer_kernel, decode_kernel, init_kernels, mp_kernels
 from hsc_torch.ops.decode import mp_decode_batch_torch, mp_decode_integer_batch_torch
+from hsc_torch.ops.decode_kernel import TILE
 from hsc_torch.ops.encode import (
     encode_init_batched,
     feature_map_int,
@@ -239,18 +242,57 @@ def test_mp_kernel_sweep_edge_cases(device, case):
     assert (got[3] > 0).all()
 
 
-@pytest.mark.parametrize("seed", range(6))
-def test_int_decode_kernel_random_events(device, seed):
-    """Random table shape, block length and events (positions up to the
-    last placement, full-range codes and reps, ragged counts)."""
-    rng = np.random.default_rng(2000 + seed)
-    k, w = int(rng.integers(1, 97)), int(rng.integers(1, 65))
-    n, m, b = int(rng.integers(w, 40000)), int(rng.integers(1, 700)), 5
-    rep = rng.integers(-4095, 4096, size=(k, w, 1)).astype(np.int32)
-    pos = rng.integers(0, n - w + 1, size=(b, m)).astype(np.int32)
+# seeds 6-11 of the random decode tests: the tiled decode kernels' edges (a
+# tile is decode_kernel.TILE = 1024 samples, a staging chunk 512 events).
+# (K, W, N, M, piled, counts): `piled` draws every position from 8 in one
+# tile, so positions
+# repeat and stream order decides the ordered decode's bits; counts "0M"
+# gives one block no events and one all M
+DECODE_EDGES = {
+    6: (40, 33, 70001, 700, False, None),   # N > 65536, N % 4 != 0
+    7: (5, 2500, 9002, 300, False, None),   # W wider than a tile
+    8: (17, 64, 16384, 1500, True, None),   # one tile, M > chunk
+    9: (96, 96, 20000, 3001, False, "0M"),  # count 0 and M, M > chunk, M % 4 != 0
+    10: (3, 1, 65537, 2048, True, "0M"),    # W = 1, N > 65536, one tile
+    11: (8, 2100, 70000, 600, True, None),  # wide events piled into one tile
+}
+
+
+def _edge_events(rng, seed, b):
+    """An edge batch of `DECODE_EDGES`: (k, w, n, pos, atm, cds, cnt)."""
+    k, w, n, m, piled, counts = DECODE_EDGES[seed]
+    if piled:
+        lo = min(TILE * int(rng.integers(0, n // TILE + 1)), n - w)
+        hot = rng.integers(lo, min(lo + TILE, n - w + 1), size=8)
+        pos = rng.choice(hot, size=(b, m))
+    else:
+        pos = rng.integers(0, n - w + 1, size=(b, m))
     atm = rng.integers(0, k, size=(b, m)).astype(np.int32)
     cds = rng.integers(-32767, 32768, size=(b, m)).astype(np.int32)
     cnt = rng.integers(0, m + 1, size=b).astype(np.int32)
+    if counts == "0M":
+        cnt[:2] = 0, m
+    return k, w, n, pos.astype(np.int32), atm, cds, cnt
+
+
+@pytest.mark.parametrize("seed", range(12))
+def test_int_decode_kernel_random_events(device, seed):
+    """Random table shape, block length and events (positions up to the
+    last placement, full-range codes and reps, ragged counts); seeds 6-11
+    draw the edges of `DECODE_EDGES`."""
+    rng = np.random.default_rng(2000 + seed)
+    b = 5
+    if seed in DECODE_EDGES:
+        k, w, n, pos, atm, cds, cnt = _edge_events(rng, seed, b)
+        rep = rng.integers(-4095, 4096, size=(k, w, 1)).astype(np.int32)
+    else:
+        k, w = int(rng.integers(1, 97)), int(rng.integers(1, 65))
+        n, m = int(rng.integers(w, 40000)), int(rng.integers(1, 700))
+        rep = rng.integers(-4095, 4096, size=(k, w, 1)).astype(np.int32)
+        pos = rng.integers(0, n - w + 1, size=(b, m)).astype(np.int32)
+        atm = rng.integers(0, k, size=(b, m)).astype(np.int32)
+        cds = rng.integers(-32767, 32768, size=(b, m)).astype(np.int32)
+        cnt = rng.integers(0, m + 1, size=b).astype(np.int32)
     amp = rng.uniform(1e-9, 1e-3, size=b).astype(np.float32)
     args = [torch.from_numpy(a).to(device) for a in (pos, atm, cds, cnt, amp, rep)]
     got = decode_integer_kernel.mp_decode_integer_batch(*args, n=n)
@@ -315,6 +357,37 @@ def test_corpus_encoder_kernels_equal_plain(device):
     assert plain.decode(blob).tobytes() == rows.tobytes()
 
 
+def test_corpus_encoder_large_block(device):
+    """A 65536-sample block, past what the greedy loop's selection cache
+    fits in shared memory (it then lives in a global workspace) and past the
+    old integer decode's shared-memory ceiling: the single-level codec with
+    backend 'cuda' gives the container and rows of backend 'torch', the rows
+    are bitwise the oracle's integer decode, and on the card both kernels
+    ran."""
+    cfg = make_test_config(counts=(16,), scales=(32,), block_size=65536, num_coefs=(512,), num_select=8)
+    assert cfg.decode_mode == "integer"
+    mld = MultilevelDictionary.generate(cfg, seed=21)
+    xs = SignalGenerator(mld, rates=2e-3).generate_signals(3, cfg.block_size, seed=23)
+    if device.type == "cuda":
+        from hsc_torch import _build
+
+        assert _build.load().hsc_mp_encode_workspace(mld.num_atoms(0), cfg.num_positions(0), cfg.num_select) > 0
+    before = _launches()
+    codec = CorpusEncoder(mld, device=device)
+    blob = codec.encode(xs)
+    rows = codec.decode(blob)
+    n = int(device.type == "cuda")
+    assert _launches() == (before[0] + n, before[1] + n)
+    plain = CorpusEncoder(mld, device=device, backend="torch")
+    assert plain.encode(xs) == blob
+    assert plain.decode(blob).tobytes() == rows.tobytes()
+    hdr, blocks = unpack_corpus(blob)
+    rep_q, step = rep_quantize(mld.representations(0)[:, :, None], hdr.rep_bits)
+    for b, ((_, st),) in enumerate(blocks):
+        assert st.positions.shape[0] > 0
+        assert rows[b].tobytes() == mp_decode_integer(st, rep_q, step, cfg.block_size)[:, 0].tobytes()
+
+
 def _bits(t: torch.Tensor) -> torch.Tensor:
     """A float32 tensor's bits, so that equality is bitwise (+0.0 != -0.0)."""
     return t.contiguous().view(torch.int32)
@@ -366,20 +439,26 @@ def test_sparse_init_kernel_random_geometry(device, seed):
     assert s0[0].cpu().numpy().tobytes() == want.tobytes()
 
 
-@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("seed", range(12))
 def test_ordered_decode_kernel_random_events(device, seed):
     """Random bank shape (widths past a CTA's 256 threads included), block
-    length and events piled onto few positions so adds overlap: the kernel
-    bitwise the plain version and `oracle.mp.mp_decode`."""
+    length and events piled onto few positions so adds overlap; seeds 6-11
+    draw the edges of `DECODE_EDGES`: the kernel bitwise the plain version
+    and `oracle.mp.mp_decode`."""
     rng = np.random.default_rng(4000 + seed)
-    k, w = int(rng.integers(1, 97)), int(rng.integers(1, 300))
-    n, m, b = int(rng.integers(w, 20000)), int(rng.integers(1, 600)), 4
-    bank = rng.standard_normal((k, w, 1)).astype(np.float32)
-    hot = rng.integers(0, n - w + 1, size=int(rng.integers(1, 40)))
-    pos = rng.choice(hot, size=(b, m)).astype(np.int32)
-    atm = rng.integers(0, k, size=(b, m)).astype(np.int32)
-    cds = rng.integers(-32767, 32768, size=(b, m)).astype(np.int32)
-    cnt = rng.integers(0, m + 1, size=b).astype(np.int32)
+    b = 4
+    if seed in DECODE_EDGES:
+        k, w, n, pos, atm, cds, cnt = _edge_events(rng, seed, b)
+        bank = rng.standard_normal((k, w, 1)).astype(np.float32)
+    else:
+        k, w = int(rng.integers(1, 97)), int(rng.integers(1, 300))
+        n, m = int(rng.integers(w, 20000)), int(rng.integers(1, 600))
+        bank = rng.standard_normal((k, w, 1)).astype(np.float32)
+        hot = rng.integers(0, n - w + 1, size=int(rng.integers(1, 40)))
+        pos = rng.choice(hot, size=(b, m)).astype(np.int32)
+        atm = rng.integers(0, k, size=(b, m)).astype(np.int32)
+        cds = rng.integers(-32767, 32768, size=(b, m)).astype(np.int32)
+        cnt = rng.integers(0, m + 1, size=b).astype(np.int32)
     scale = rng.uniform(1e-7, 1e-2, size=b).astype(np.float32)
     args = [torch.from_numpy(a).to(device) for a in (pos, atm, cds, cnt, scale, bank)]
     got = decode_kernel.mp_decode_batch(*args, n=n)

@@ -104,3 +104,20 @@ def test_coder_ordered_reconstruct_matches_jax_and_oracle(mld1, mld2, levels):
         rows = tc.reconstruct_batch(low, level=0)
         for b in range(4):
             assert rows[b].tobytes() == hierarchical_decode(low[b], mld, level=0).tobytes()
+
+
+@pytest.mark.parametrize("n", [65536])
+def test_ordered_decode_large_block_vs_jax(n):
+    """A 65536-sample block: the plain ordered decode bitwise the JAX
+    package's XLA scan on random events piled onto a few positions (adds
+    overlap, so stream order decides the bits), ragged counts and an empty
+    block."""
+    rng = np.random.default_rng(n)
+    b, m, k, w = 3, 500, 24, 96
+    pos, atm, cds, cnt, scale = _random_batch(rng, b, m, n, k, w)
+    bank = rng.standard_normal((k, w, 1)).astype(np.float32)
+    args = (pos, atm, cds, cnt, scale, bank)
+    got = mp_decode_batch_torch(*(torch.from_numpy(a) for a in args), n=n).numpy()
+    assert got.shape == (b, n, 1)
+    assert got.tobytes() == np.asarray(mp_decode_batch_jax(*(jnp.asarray(a) for a in args), n=n)).tobytes()
+    assert got[0].any() and not got[-1].any()
