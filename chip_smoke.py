@@ -42,13 +42,20 @@ level-1 init; dictionary seed 9, signals seed 5) it then:
      peak out) against their plain route (the dense hand-off map, then the
      dense init) on the level-0 events of a real 64-block encode — scores
      and peak bitwise, e0 within 1e-6 relative — and against
-     `oracle.int8_init_scores` on 2 blocks, and on an adversarial batch of
-     4096 events per block (an all-zero block, a cell of 64 events, cells at
-     the four-digit bound from large codes, events past `count`, at
-     N - W < pos < N and off the map);
+     `oracle.int8_init_scores` on 2 blocks, and on adversarial batches of
+     4096, 8193, 16384, 20000 and 65281 events per block (an all-zero block,
+     a cell of 64 events, cells at the four-digit bound from large codes,
+     events past `count`, at N - W < pos < N and off the map), logging which
+     route each took (the cell kernel's sort in shared memory up to 16384
+     events, in a global workspace past that) and timing the global route
+     at 20000;
   8. holds the ordered-decode kernel bitwise against its plain version on
      64 top streams and against `oracle.hierarchical_decode` on every block,
-     and on phase 4's edge batch against `oracle.mp.mp_decode`;
+     and on phase 4's edge batch against `oracle.mp.mp_decode`; then at
+     C = 64 channels (the level-space decode of the level-1 streams against
+     level 1's augmented bank) against the plain version, `oracle.mp.mp_decode`
+     on 2 blocks and the coder's single-block `reconstruct`, with its device
+     time (a CUDA graph) and bound;
   9. drives the hierarchy end to end on 128 blocks through CorpusEncoder in
      both decode modes and both container forms, counted: repeated encodes
      give identical bytes, level 1 is bitwise the oracle's greedy loop on
@@ -64,12 +71,22 @@ level-1 init; dictionary seed 9, signals seed 5) it then:
      time is the profile's; the ordered decode's as in phase 6), and one
      ordered decode.
 
-Then, at 65536-sample blocks (16 atoms of width 32, 512 coefficients):
+Then:
 
- 11. encodes and decodes 4 blocks with CorpusEncoder(device='cuda'), whose
+ 11. encodes and decodes 4 blocks of 65536 samples (16 atoms of width 32,
+     512 coefficients) with CorpusEncoder(device='cuda'), whose
      greedy loop keeps its selection cache in a global workspace (it does
      not fit the card's shared memory), counted on its own: containers and
      rows equal backend='torch', rows bitwise the oracle's integer decode.
+ 12. a 2-level hierarchy whose level 0 keeps 20000 events per block
+     (32768-sample blocks, so the level-1 int8 init takes the global route)
+     through CorpusEncoder(device='cuda') on 4 blocks, counted, equal to
+     backend='torch'; then, on the flat flagship's 128 blocks of phase 5,
+     the serving surfaces (`encode(index=True)`, `decode_blocks` and
+     `decode_stream(indices=...)` on 40 shuffled blocks, `CorpusReader`
+     rows), `target_bps` containers in both rate modes (equal to
+     backend='torch'), all counted, and a journal resume that gives the same
+     bytes and launches no kernel.
 
 Every phase is fatal on failure.  The NumPy spec it checks against is the
 port's own copy (`hsc_torch.oracle`, `hsc_torch.io`); the script fails if
@@ -433,6 +450,30 @@ def edge_decode_batch(dev, phase: int, what: str, kernel, plain, oracle, table: 
     return max_abs_diff([got], [ref])
 
 
+def adversarial_events(rng, m_ev: int, n_map: int, c_map: int, w: int):
+    """Four blocks of `m_ev` int8-init events on a map of n_map x c_map
+    cells: a cell of 64 events, cells at the four-digit bound from large
+    codes (blocks 0 and 1; nothing else adds to them), events at N - W <
+    pos < N and off the map, counts of m_ev, m_ev / 2, 7 and 0 (an all-zero
+    block).  Returns host (pos, atm, cds, cnt) and the bound codes."""
+    pos = rng.integers(0, n_map, (4, m_ev)).astype(np.int32)
+    atm = rng.integers(0, c_map, (4, m_ev)).astype(np.int32)
+    cds = rng.integers(-32767, 32768, (4, m_ev)).astype(np.int32)
+    pos[:, 1:64], atm[:, 1:64] = pos[:, :1], atm[:, :1]
+    bound = 2139062143
+    big = (bound, -bound, bound - 255, -bound + 1, bound)
+    for blk in (0, 1):
+        cds[blk, 64:69] = big
+        for j in range(64, 69):  # nothing else adds to these cells
+            clash = (pos[blk] == pos[blk, j]) & (atm[blk] == atm[blk, j])
+            clash[64:69] = False
+            cds[blk, clash] = 0
+    pos[:, 69:80] = n_map - 1 - rng.integers(0, w - 1, (4, 11))
+    pos[:, 80], pos[:, 81], atm[:, 82], atm[:, 83] = -1, n_map, c_map, -1
+    cnt = np.array([m_ev, m_ev // 2, 7, 0], np.int32)
+    return (pos, atm, cds, cnt), big
+
+
 def sweep_edge_cases(dev) -> float:
     """Phase 3's edge cases of the one-pass sweep (see the module
     docstring); returns the largest kernel-vs-plain |diff| (0 when bitwise)."""
@@ -513,8 +554,8 @@ def hierarchy(dev, card: str):
     import torch
     import torch.nn.functional as F
 
-    from hsc_torch import MultilevelDictionary, SignalGenerator, make_test_config
-    from hsc_torch.ops import decode_integer_kernel, decode_kernel, init_kernels, mp_kernels
+    from hsc_torch import MultilevelDictionary, SignalGenerator, _build, make_test_config
+    from hsc_torch.ops import decode_kernel, init_kernels, mp_kernels
     from hsc_torch.ops import encode as encode_ops
     from hsc_torch.ops.decode import mp_decode_batch_torch
     from hsc_torch.ops.encode import (
@@ -581,36 +622,36 @@ def hierarchy(dev, card: str):
         oracle_s0[b] = int8_init_scores(m_int[b].cpu().numpy(), bq, step, ps[b].cpu().numpy())
         check(s0_1[b].cpu().numpy().tobytes() == oracle_s0[b].tobytes(), f"int8 init != oracle at block {b}")
         log(f"[7] int8 init == oracle.int8_init_scores at block {b} ({time.perf_counter() - t0:.1f} s of NumPy)")
-    # adversarial events: a cell of 64 events, cells at the four-digit bound
-    # from large codes, events past `count`, at N - W < pos < N and off the
-    # map, and an all-zero block
+    # adversarial batches of 4096 events per block and, past the 8192 that
+    # the cell kernel once sorted, of 8193 to 65281 (the most CodecConfig
+    # admits for hier_init='int8' at amp_bits=16): up to 16384 the sort runs
+    # in shared memory, past it in a global workspace
     rng = np.random.default_rng(11)
-    m_ev = 4096
-    pos = rng.integers(0, n_map, (4, m_ev)).astype(np.int32)
-    atm = rng.integers(0, c_map, (4, m_ev)).astype(np.int32)
-    cds = rng.integers(-32767, 32768, (4, m_ev)).astype(np.int32)
-    pos[:, 1:64], atm[:, 1:64] = pos[:, :1], atm[:, :1]
-    bound = 2139062143
-    big = (bound, -bound, bound - 255, -bound + 1, bound)
-    for blk in (0, 1):
-        cds[blk, 64:69] = big
-        for j in range(64, 69):  # nothing else adds to these cells
-            clash = (pos[blk] == pos[blk, j]) & (atm[blk] == atm[blk, j])
-            clash[64:69] = False
-            cds[blk, clash] = 0
-    pos[:, 69:80] = n_map - 1 - rng.integers(0, w1 - 1, (4, 11))
-    pos[:, 80], pos[:, 81], atm[:, 82], atm[:, 83] = -1, n_map, c_map, -1
-    cnt = np.array([m_ev, m_ev // 2, 7, 0], np.int32)
-    adv = [torch.from_numpy(a).to(dev) for a in (pos, atm, cds, cnt)]
-    adv_map = feature_map_int(*adv, npos=n_map, k=c_map)
-    check(set(big) <= set(adv_map[:2].unique().tolist()), "the adversarial map misses a bound cell")
-    (ak, _, apk), err, rel = init_case((*adv, ps[:4].contiguous(), mp1.bank_planes, mp1.bank_step),
-                                       "the adversarial batch")
-    check(float(apk[3]) == 0.0 and not bool(ak[3].any()), "all-zero block has nonzero scores")
-    init_err, e0_rel = max(init_err, err), max(e0_rel, rel)
+    lib = _build.load()
+    routes = {}
+    for m_ev in (4096, 8193, 16384, 20000, 65281):
+        ev_np, big = adversarial_events(rng, m_ev, n_map, c_map, w1)
+        adv = [torch.from_numpy(a).to(dev) for a in ev_np]
+        adv_map = feature_map_int(*adv, npos=n_map, k=c_map)
+        check(set(big) <= set(adv_map[:2].unique().tolist()), f"the adversarial map misses a bound cell (M={m_ev})")
+        adv_args = (*adv, ps[:4].contiguous(), mp1.bank_planes, mp1.bank_step)
+        (ak, _, apk), err, rel = init_case(adv_args, f"the adversarial batch of {m_ev} events")
+        check(float(apk[3]) == 0.0 and not bool(ak[3].any()), "all-zero block has nonzero scores")
+        init_err, e0_rel = max(init_err, err), max(e0_rel, rel)
+        ws = lib.hsc_int8_init_workspace(m_ev)
+        check(ws >= 0, f"hsc_int8_init_workspace({m_ev}) failed: {ws}")
+        routes[m_ev] = "global" if ws else "shared"
+        if m_ev == 20000:  # the global route's time (events, planes in; scores, e0, peak out)
+            many_ms = cuda_ms(lambda: init_kernel(adv_args), 10)
+            many_bound = card_bound(4 * (3 * 4 * m_ev + 2 * 4) + mp1.bank_planes.numel() + 4 * (ak.numel() + 2 * 4),
+                                    int((adv_map != 0).sum()) * n_raw * w1 * 16)
+    check(routes[16384] == "shared" and routes[20000] == "global", f"int8 init routes {routes}")
     log(f"[7] int8 init: kernels == plain route bitwise (scores {tuple(s0_1.shape)}, peak; "
         f"e0 within {e0_rel:.3g} relative) on {BATCH} real level-1 batches ({nnz} nonzero cells, "
-        f"{nnz / BATCH:.0f} per block) and on the adversarial batch; == oracle on 2 blocks")
+        f"{nnz / BATCH:.0f} per block) and on adversarial batches of M events per block, sorted in "
+        f"{', '.join(f'{m}: {r}' for m, r in routes.items())} memory; == oracle on 2 blocks")
+    log(f"[7] int8 init, 4 blocks of 20000 events (global-memory sort), card {card}: {many_ms:.4f} ms per call "
+        f"(CUDA events, 10 calls); bound {many_bound['bound_ms']:.5f} ms by {many_bound['bound_by']}")
 
     # ---- 8. ordered-decode kernel vs plain version vs oracle --------------
     sc1, iv1 = quantizer_steps(peak_1.cpu().numpy(), cfg.amp_bits)
@@ -636,19 +677,43 @@ def hierarchy(dev, card: str):
     od_err = max(od_err, edge_decode_batch(dev, 8, "ordered_decode", decode_kernel.mp_decode_batch,
                                            mp_decode_batch_torch, lambda st, n: mp_decode(st, edge_bank, n),
                                            edge_bank))
+    # the level-space decode of the level-1 streams: the augmented bank
+    # [K, W, C] with C = the 64 level-0 atoms, rows [n, C] of the level-1 map
+    n_ls = cfg.seq_len(1)
+    ls_args = (*dec_args[:5], mp1.bank)
+
+    def level_space_decode():
+        return decode_kernel.mp_decode_batch(*ls_args, n=n_ls)
+
+    got_ls = level_space_decode()
+    ref_ls = mp_decode_batch_torch(*ls_args, n=n_ls)
+    torch.cuda.synchronize()
+    check(bits_equal(got_ls, ref_ls), "ordered_decode kernel != plain at C > 1 (level space)")
+    aug1 = mld.augmented(1)
+    for b in (0, 37):
+        check(got_ls[b].cpu().numpy().tobytes() == mp_decode(top_streams[b], aug1, n_ls).tobytes(),
+              f"level-space ordered_decode != oracle.mp.mp_decode at block {b}")
+    check(coder.coders[1].reconstruct(top_streams[0]).tobytes() == got_ls[0].cpu().numpy().tobytes(),
+          "ConvolutionalSparseCoder.reconstruct != the batched level-space decode")
+    od_err = max(od_err, max_abs_diff([got_ls], [ref_ls]))
+    ls_dev = statistics.median([graph_ms(level_space_decode) for _ in range(3)])
+    ev_ls = int(enc1.count.sum())
+    k1, w_ls, c_ls = (int(v) for v in mp1.bank.shape)
+    ls_bound = card_bound(12 * ev_ls + 8 * BATCH + 4 * (mp1.bank.numel() + got_ls.numel()), 3 * ev_ls * w_ls * c_ls)
+    del got_ls, ref_ls
+    log(f"[8] ordered_decode at C = {c_ls} (level space of level 1, bank [{k1}, {w_ls}, {c_ls}], rows "
+        f"[{BATCH}, {n_ls}, {c_ls}]): kernel == plain bitwise on {BATCH} blocks, == oracle.mp.mp_decode on 2, "
+        f"== the coder's single-block reconstruct; card {card}: device time {ls_dev:.4f} ms (CUDA graph of "
+        f"20 launches, median of 3), bound {ls_bound['bound_ms']:.5f} ms by {ls_bound['bound_by']}")
 
     # ---- 9. the hierarchy end to end, counted ------------------------------
     mld_o = MultilevelDictionary.generate(dataclasses.replace(cfg, decode_mode="ordered"), seed=9)
     codec_o = CorpusEncoder(mld_o, device=dev)
     codec_d = CorpusEncoder(mld, device=dev, distributed=True)
     codec_od = CorpusEncoder(mld_o, device=dev, distributed=True)
-    counters = {"mp_encode": mp_kernels, "int_decode": decode_integer_kernel,
-                "sparse_init": init_kernels, "ordered_decode": decode_kernel}
     # the dense route of the int8 init: the hand-off map and the torch epilogue
     dense_fns = ("feature_map_int", "int8_assemble_batched")
-    with counting_calls(encode_ops, dense_fns) as dense:
-        for mod in counters.values():
-            mod.LAUNCHES = 0
+    with counting_calls(encode_ops, dense_fns) as dense, counted() as launches:
         blob = codec.encode(xs)
         blob2 = codec.encode(xs)
         rows = codec.decode(blob)
@@ -658,7 +723,6 @@ def hierarchy(dev, card: str):
         rows_d = codec_d.decode(blob_d)
         blob_od = codec_od.encode(xs)
         rows_od = codec_od.decode(blob_od)
-        launches = {name: mod.LAUNCHES for name, mod in counters.items()}
     log(f"[9] launches on the hierarchical path: {launches}; calls of the dense int8-init route: {dense}")
     check(all(v > 0 for v in launches.values()), "a kernel of the hierarchical path was never launched")
     check(not any(dense.values()), "the CUDA int8 path built a dense map or ran the torch epilogue")
@@ -819,11 +883,13 @@ def hierarchy(dev, card: str):
          "replaces": "hsc_tpu/ops/init_kernels.py:76, hsc_tpu/ops/encode.py:479",
          "launches": launches["sparse_init"],
          "max_abs_err": init_err, "e0_max_rel_err": e0_rel, "ms": statistics.median(in_k),
-         "device_ms": init_dev_ms, "plain_ms": statistics.median(in_p), **init_bound, "library_ms": in_lib},
+         "device_ms": init_dev_ms, "plain_ms": statistics.median(in_p), **init_bound, "library_ms": in_lib,
+         "sort_routes": routes, "ms_m20000": many_ms, "bound_ms_m20000": many_bound["bound_ms"]},
         {"name": "ordered_decode", "route": "cuda", "source": "hsc_torch/csrc/ordered_decode.cu",
          "replaces": "hsc_tpu/ops/decode_kernel.py:33", "launches": launches["ordered_decode"],
          "max_abs_err": od_err, "ms": statistics.median(od_host), "device_ms": statistics.median(od_dev),
-         "plain_ms": statistics.median(od_p), **od_bound, "library_ms": None},
+         "plain_ms": statistics.median(od_p), **od_bound, "library_ms": None,
+         "device_ms_c64": ls_dev, "bound_ms_c64": ls_bound["bound_ms"]},
     ]
     return kernels, launches
 
@@ -873,6 +939,118 @@ def large_block(dev) -> None:
     log(f"[11] 65536-sample blocks (selection cache in a {ws}-byte global slice per block): launches {launches}; "
         f"4 blocks -> {len(blob)} bytes, {events} events, mean SNR {snr:.3f} dB, encode + decode {wall:.2f} s; "
         f"containers and rows == backend='torch', rows == oracle integer decode")
+
+
+def kernel_counters():
+    from hsc_torch.ops import decode_integer_kernel, decode_kernel, init_kernels, mp_kernels
+
+    return {"mp_encode": mp_kernels, "int_decode": decode_integer_kernel,
+            "sparse_init": init_kernels, "ordered_decode": decode_kernel}
+
+
+@contextlib.contextmanager
+def counted():
+    """Every kernel's launch count set to 0 on entry; on exit the dict it
+    yields holds the launches made inside."""
+    mods = kernel_counters()
+    for mod in mods.values():
+        mod.LAUNCHES = 0
+    launches = {}
+    try:
+        yield launches
+    finally:
+        launches.update({name: mod.LAUNCHES for name, mod in mods.items()})
+
+
+def deep_level0(dev) -> None:
+    """Phase 12a: a 2-level hierarchy whose level 0 keeps up to 20000 events
+    per block (32768-sample blocks, 16 and 8 atoms of widths 32 and 64,
+    num_select=8), so the level-1 int8 init sorts each block's events in a
+    global workspace: 4 blocks through CorpusEncoder(device='cuda'),
+    counted, containers and rows equal to backend='torch'."""
+    from hsc_torch import MultilevelDictionary, SignalGenerator, _build, make_test_config
+    from hsc_torch.io import unpack_corpus
+    from hsc_torch.runtime import CorpusEncoder
+
+    cfg = make_test_config(block_size=32768, counts=(16, 8), scales=(32, 64), num_coefs=(20000, 128),
+                           num_select=8)
+    check(cfg.hier_init == "int8" and cfg.decode_mode == "ordered" and cfg.tolerance_snr is None,
+          f"the deep level-0 config resolved to {cfg.hier_init}, {cfg.decode_mode}, {cfg.tolerance_snr}")
+    check(_build.load().hsc_int8_init_workspace(cfg.num_coefs[0]) > 0, "20000 events fit the shared-memory sort")
+    mld = MultilevelDictionary.generate(cfg, seed=25)
+    xs = SignalGenerator(mld, rates=2e-3).generate_signals(4, cfg.block_size, seed=27)
+    codec = CorpusEncoder(mld, device=dev)
+    n0 = codec.coder.coders[0].mp.compute_coefficients_batch(xs).count.cpu().numpy()
+    check(int(n0.max()) > 8192, f"level 0 emitted at most {int(n0.max())} events a block")
+    t0 = time.perf_counter()
+    with counted() as launches:
+        blob = codec.encode(xs)
+        rows = codec.decode(blob)
+    wall = time.perf_counter() - t0
+    check(all(launches[k] > 0 for k in ("mp_encode", "sparse_init", "ordered_decode")),
+          f"a kernel of the deep level-0 path was never launched: {launches}")
+    plain = CorpusEncoder(mld, device=dev, backend="torch")
+    check(plain.encode(xs) == blob, "deep level 0: backend='torch' container != backend='cuda' container")
+    check(plain.decode(blob).tobytes() == rows.tobytes(), "deep level 0: backend='torch' rows != cuda rows")
+    check(rows.shape == (4, cfg.block_size) and np.isfinite(rows).all(), "deep level 0: bad decode output")
+    _, blocks = unpack_corpus(blob)
+    log(f"[12] hierarchy with level-0 num_coefs {cfg.num_coefs[0]} (block {cfg.block_size}): level 0 emitted "
+        f"{n0.tolist()} events, "
+        f"level 1 {[int(s[0][1].positions.shape[0]) for s in blocks]}; launches {launches}; 4 blocks -> "
+        f"{len(blob)} bytes in {wall:.2f} s; containers and rows == backend='torch'")
+
+
+def serving(dev, mld, xs, blob, rows) -> None:
+    """Phase 12b: the serving, rate-control and journal surfaces on the flat
+    flagship's 128 blocks (`blob` and its `rows` from phase 5), counted."""
+    import os
+    import shutil
+
+    from hsc_torch.io import append_index
+    from hsc_torch.runtime import CorpusEncoder, CorpusReader
+
+    codec = CorpusEncoder(mld, device=dev)
+    plain = CorpusEncoder(mld, device=dev, backend="torch")
+    order = np.random.default_rng(29).permutation(len(rows))[:40].tolist()
+    work = os.path.join("build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    path = os.path.join(work, "flagship.hsct")
+    with counted() as launches:
+        indexed = codec.encode(xs, index=True)
+        with open(path, "wb") as f:
+            f.write(indexed)
+        picked = codec.decode_blocks(indexed, order)
+        streamed = np.stack(list(codec.decode_stream(blob, indices=order)))
+        with CorpusReader(path, mld, device=dev, batch_size=32) as rd:
+            read = np.stack(list(rd.rows()))
+            one, tail, window = rd[order[0]], rd[-1], rd[5:40]
+        cbr = {mode: CorpusEncoder(mld, device=dev, target_bps=0.8, rate_mode=mode).encode(xs)
+               for mode in ("block", "corpus")}
+    check(launches["mp_encode"] > 0 and launches["int_decode"] > 0,
+          f"a kernel of the serving path was never launched: {launches}")
+    check(indexed == append_index(blob), "encode(index=True) != append_index(encode())")
+    check(picked.tobytes() == rows[order].tobytes(), "decode_blocks rows != decode rows")
+    check(streamed.tobytes() == rows[order].tobytes(), "decode_stream(indices=...) rows != decode rows")
+    check(read.tobytes() == rows.tobytes() and one.tobytes() == rows[order[0]].tobytes()
+          and tail.tobytes() == rows[-1].tobytes() and window.tobytes() == rows[5:40].tobytes(),
+          "CorpusReader rows != decode rows")
+    for mode, c in cbr.items():
+        check(len(c) < len(blob), f"the {mode}-rate container is not smaller than the unconstrained one")
+        check(CorpusEncoder(mld, device=dev, backend="torch", target_bps=0.8, rate_mode=mode).encode(xs) == c,
+              f"target_bps container (rate_mode={mode!r}) != backend='torch'")
+        check(codec.decode(c).tobytes() == plain.decode(c).tobytes(), f"{mode}-rate rows != backend='torch'")
+    log(f"[12] serving, {len(rows)} flat-flagship blocks: launches {launches}; encode(index=True) == append_index; "
+        f"decode_blocks, decode_stream(indices) on {len(order)} shuffled blocks and CorpusReader rows == decode rows; "
+        f"target_bps=0.8 containers ({', '.join(f'{m}: {len(c)} bytes' for m, c in cbr.items())}, full "
+        f"{len(blob)}) and rows == backend='torch'")
+    jdir = os.path.join(work, "journal")
+    shutil.rmtree(jdir, ignore_errors=True)
+    check(CorpusEncoder(mld, device=dev, journal_dir=jdir).encode(xs) == blob, "journaled encode != encode")
+    with counted() as launches:
+        resumed = CorpusEncoder(mld, device=dev, journal_dir=jdir).encode(xs)
+    check(resumed == blob, "journal resume != encode")
+    check(not any(launches.values()), f"the journal resume launched kernels: {launches}")
+    log(f"[12] journal resume: identical bytes, launches {launches}")
 
 
 def main() -> int:
@@ -1091,6 +1269,8 @@ def main() -> int:
     # (phase 9), which runs all four; phase 5's counts were checked above
     hier_kernels, launches = hierarchy(dev, card)
     large_block(dev)
+    deep_level0(dev)
+    serving(dev, mld, xs, blob, decoded)
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "hsc_tpu"))
     check(not loaded, f"JAX or the JAX package was imported: {loaded}")

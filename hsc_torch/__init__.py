@@ -13,12 +13,15 @@ for an NVIDIA Hopper card and mirrors its layout and names:
   models        — ConvolutionalMatchingPursuit / ...SparseCoder and the
                   multi-level HierarchicalConvolutionalSparseCoder (nn.Module)
   runtime       — CorpusEncoder: the hierarchy's encode -> container ->
-                  decode, both decode modes, top-only or distributed
+                  decode, both decode modes, top-only or distributed, the
+                  seek index and random-access decode, constant bitrate,
+                  the resume journal and multi-process shards; CorpusReader
+                  serves rows of a container file
 
 The port keeps its own copies of the JAX package's NumPy modules, verbatim:
 `config`, `dictionary`, `signal`, `oracle` (the NumPy spec), `io` (the
-container format and its native packer, `csrc/bitpack.cpp`) and `utils`
-(`normalize`, `snr_db`).  tests/test_torch_copies.py holds each equal to its
+container format, its native packer `csrc/bitpack.cpp`, and the encode
+journal) and `utils` (`normalize`, `snr_db`, and `metrics`).  tests/test_torch_copies.py holds each equal to its
 original.  Nothing in this package imports JAX or `hsc_tpu`; a JAX
 package's dictionary crosses over through `params.dictionary_from_arrays`.
 """
@@ -35,14 +38,15 @@ __all__ = [
     "MultilevelDictionary",
     "SignalGenerator",
     "CorpusEncoder",
+    "CorpusReader",
 ]
 
 
 def __getattr__(name):
     # lazy, like hsc_tpu: the light surface (config/dictionary/signal) does
     # not pay for importing torch's models and the runtime
-    if name == "CorpusEncoder":
+    if name in ("CorpusEncoder", "CorpusReader"):
         from . import runtime
 
-        return runtime.CorpusEncoder
+        return getattr(runtime, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

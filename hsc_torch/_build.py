@@ -55,8 +55,9 @@ _SIGNATURES = {
     "hsc_mp_encode": [_P] * 11 + [_I] * 6 + [_F, _I, _F, _P, _P],
     "hsc_mp_encode_workspace": [_I] * 3,
     "hsc_int_decode": [_P] * 7 + [_I] * 5 + [_P],
-    "hsc_int8_init": [_P] * 10 + [_F] + [_I] * 7 + [_P],
-    "hsc_ordered_decode": [_P] * 7 + [_I] * 5 + [_P],
+    "hsc_int8_init": [_P] * 11 + [_F] + [_I] * 7 + [_P],
+    "hsc_int8_init_workspace": [_I],
+    "hsc_ordered_decode": [_P] * 7 + [_I] * 6 + [_P],
 }
 
 

@@ -1,17 +1,24 @@
 // The tiled event walk that both decode kernels share (int_decode.cu,
 // ordered_decode.cu): one design, two arithmetics.
 //
-// Grid: one CTA per (block b, tile of kTile consecutive samples), flattened
-// into blockIdx.x, so a 64-block flagship batch is 1024 CTAs over 132 SMs
-// and no size depends on N (there is no block-size ceiling).  Each thread owns
-// kRun contiguous samples of the tile in registers.
+// Channels: the table [K, W, C] and each output row [N, C] are row-major, so
+// an event at position p adds the W * C contiguous taps of its atom's row at
+// element offset p * C of the block's flattened row of N * C floats.  The
+// walk below runs on that flattened row (positions p * C, widths W * C); an
+// event's liveness is still tested on p.  The integer decode passes C = 1.
+//
+// Grid: one CTA per (block b, tile of kTile consecutive elements of the
+// flattened row), flattened into blockIdx.x, so a 64-block flagship batch is
+// 1024 CTAs over 132 SMs and no size depends on N or C (there is no
+// block-size ceiling).  Each thread owns kRun contiguous elements of the
+// tile in registers.
 //
 // Events are staged kChunk at a time, each thread taking kPer consecutive
 // ones with one 16-byte load per field where the row allows it (scalar loads
 // where M % 4 != 0 or a row starts unaligned).  Each chunk's list for the
 // tile holds the live events (before `count`, 0 <= p <= N - W, 0 <= atom < K,
-// exactly as the plain versions skip the rest) whose window [p, p + W) meets
-// the tile.  The list is built with a block-wide prefix sum over the
+// exactly as the plain versions skip the rest) whose window [p C, (p + W) C)
+// meets the tile.  The list is built with a block-wide prefix sum over the
 // threads' counts in thread order, which is stream order, so it is stable:
 // the list keeps the stream's order.  Shared memory is bounded by the chunk,
 // not by M, `count` or N.  An event wider than a tile is listed in every
@@ -19,7 +26,7 @@
 //
 // Then every thread walks the whole list in order and adds each listed
 // event's taps to the samples it owns (Op::add), reading the table
-// (bank or rep_q, [K, W]) through L1.  A sample has one owner, so its adds
+// (bank or rep_q, [K, W C]) through L1.  A sample has one owner, so its adds
 // happen in stream order in that thread: no atomics, no reordering.
 //
 // The tile goes out as float4 stores from registers when the row is 16-byte
@@ -86,8 +93,8 @@ __device__ __forceinline__ float4 finish4(const typename Op::Acc* acc, float s) 
 // barrier here is passed only when every thread has finished its walk.
 template <class Op>
 __device__ __forceinline__ int stage_chunk(const int* pos_row, const int* atom_row, const int* code_row,
-                                           bool vec, int c0, int n_ev, int M, int K, int W, int N, int t0,
-                                           int t_end, float s, TileList& L) {
+                                           bool vec, int c0, int n_ev, int M, int K, int W, int N, int C,
+                                           int t0, int t_end, float s, TileList& L) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -111,12 +118,14 @@ __device__ __forceinline__ int stage_chunk(const int* pos_row, const int* atom_r
   }
   unsigned keep = 0;
   int n_keep = 0;
+  const int WC = W * C;
 #pragma unroll
   for (int j = 0; j < kPer; ++j) {
     // dead events are never in a valid stream; they are skipped, as in the
     // plain versions, rather than read or written out of bounds
     const bool live = g + j < n_ev && p[j] >= 0 && p[j] <= N - W && a[j] >= 0 && a[j] < K;
-    if (live && p[j] < t_end && p[j] + W > t0) {
+    p[j] = live ? p[j] * C : 0;  // the event's offset in the flattened row
+    if (live && p[j] < t_end && p[j] + WC > t0) {
       keep |= 1u << j;
       ++n_keep;
     }
@@ -157,15 +166,17 @@ decode_tiles_kernel(const int* __restrict__ positions,          // [B, M]
                     const int* __restrict__ codes,              // [B, M]
                     const int* __restrict__ count,              // [B]
                     const float* __restrict__ scalar,           // [B] scale or amp_step
-                    const typename Op::Table* __restrict__ table,  // [K, W]
-                    float* __restrict__ out,                    // [B, N]
-                    int M, int K, int W, int N, int n_tiles) {
+                    const typename Op::Table* __restrict__ table,  // [K, W, C]
+                    float* __restrict__ out,                    // [B, N, C]
+                    int M, int K, int W, int N, int C, int n_tiles) {
   __shared__ TileList L;
   __shared__ __align__(16) float s_tile[kTile];
   const int tid = threadIdx.x;
   const int b = blockIdx.x / n_tiles;
+  // the flattened row: NC elements, WC taps an event (C == 1: N and W)
+  const int NC = N * C, WC = W * C;
   const int t0 = (blockIdx.x - b * n_tiles) * kTile;
-  const int t_end = min(t0 + kTile, N);
+  const int t_end = min(t0 + kTile, NC);
   const int s0 = t0 + tid * kRun;  // this thread's run
   const size_t row = static_cast<size_t>(b) * M;
   const int* pos_row = positions + row;
@@ -187,28 +198,28 @@ decode_tiles_kernel(const int* __restrict__ positions,          // [B, M]
   // overlap the loads of count and the scalar
   int c0 = 0;
   do {
-    const int n_list = stage_chunk<Op>(pos_row, atom_row, code_row, vec, c0, n_ev, M, K, W, N, t0, t_end, s, L);
+    const int n_list = stage_chunk<Op>(pos_row, atom_row, code_row, vec, c0, n_ev, M, K, W, N, C, t0, t_end, s, L);
     if constexpr (Op::kScatter) {
       // warps take the listed events, lanes their taps inside the tile
       const int lane = tid & 31;
       for (int i = tid >> 5; i < n_list; i += kWarps) {
         const int p = L.pos[i];
         const int v = L.val[i];
-        const typename Op::Table* trow = table + static_cast<size_t>(L.atom[i]) * W;
-        const int u_end = min(W, t_end - p);
+        const typename Op::Table* trow = table + static_cast<size_t>(L.atom[i]) * WC;
+        const int u_end = min(WC, t_end - p);
         for (int u = max(0, t0 - p) + lane; u < u_end; u += 32) Op::scatter(acc_sh + (p + u - t0), v, __ldg(trow + u));
       }
     } else {
 #pragma unroll (kUnroll)
       for (int i = 0; i < n_list; ++i) {
         const int p = L.pos[i];
-        if (p >= s0 + kRun || p + W <= s0) continue;
+        if (p >= s0 + kRun || p + WC <= s0) continue;
         const int v = L.val[i];
-        const typename Op::Table* trow = table + static_cast<size_t>(L.atom[i]) * W;
+        const typename Op::Table* trow = table + static_cast<size_t>(L.atom[i]) * WC;
 #pragma unroll
         for (int j = 0; j < kRun; ++j) {
           const int u = s0 + j - p;
-          if (u >= 0 && u < W) Op::add(acc[j], v, __ldg(trow + u));
+          if (u >= 0 && u < WC) Op::add(acc[j], v, __ldg(trow + u));
         }
       }
     }
@@ -226,20 +237,20 @@ decode_tiles_kernel(const int* __restrict__ positions,          // [B, M]
     }
   }
 
-  float* orow = out + static_cast<size_t>(b) * N;
+  float* orow = out + static_cast<size_t>(b) * NC;
   if (aligned16(orow)) {  // t0 and s0 are multiples of 4: every run is aligned
-    if (s0 + kRun <= N) {
+    if (s0 + kRun <= NC) {
 #pragma unroll
       for (int q = 0; q < kRun; q += 4)
         *reinterpret_cast<float4*>(orow + s0 + q) = finish4<Op>(acc + q, s);
     } else {
 #pragma unroll
       for (int j = 0; j < kRun; ++j)
-        if (s0 + j < N) orow[s0 + j] = Op::finish(acc[j], s);
+        if (s0 + j < NC) orow[s0 + j] = Op::finish(acc[j], s);
     }
     return;
   }
-  // an unaligned row (N % 4 != 0): through the shared tile
+  // an unaligned row (N C % 4 != 0): through the shared tile
 #pragma unroll
   for (int q = 0; q < kRun; q += 4)
     *reinterpret_cast<float4*>(s_tile + tid * kRun + q) = finish4<Op>(acc + q, s);
@@ -256,20 +267,21 @@ decode_tiles_kernel(const int* __restrict__ positions,          // [B, M]
   for (int i = head + 4 * n_vec + tid; i < len; i += kThreads) o[i] = s_tile[i];
 }
 
-// Launches the kernel on `stream`; returns the launch's error.  The kernel
-// uses only static shared memory (under 48 KB), so no function attribute is
-// set per call.
+// Launches the kernel on `stream` for a table of C channels; returns the
+// launch's error.  The kernel uses only static shared memory (under 48 KB),
+// so no function attribute is set per call.
 template <class Op>
 int launch_decode_tiles(const int* positions, const int* atoms, const int* codes, const int* count,
                         const float* scalar, const typename Op::Table* table, float* out, int B, int M,
-                        int K, int W, int N, void* stream) {
+                        int K, int W, int N, int C, void* stream) {
   if (B == 0) return cudaSuccess;
-  if (K < 1 || W < 1 || N < W || M < 0) return cudaErrorInvalidValue;
-  const int n_tiles = (N + kTile - 1) / kTile;
+  if (K < 1 || W < 1 || N < W || M < 0 || C < 1 || static_cast<long long>(N) * C > INT_MAX - kTile)
+    return cudaErrorInvalidValue;
+  const int n_tiles = (N * C + kTile - 1) / kTile;
   const long long grid = static_cast<long long>(B) * n_tiles;
   if (grid > INT_MAX) return cudaErrorInvalidValue;
   decode_tiles_kernel<Op><<<static_cast<unsigned>(grid), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      positions, atoms, codes, count, scalar, table, out, M, K, W, N, n_tiles);
+      positions, atoms, codes, count, scalar, table, out, M, K, W, N, C, n_tiles);
   return cudaGetLastError();
 }
 

@@ -51,6 +51,8 @@ extern "C" int hsc_int_decode(const int* positions, const int* atoms, const int*
                               const int* count, const float* amp_step, const int* rep_q,
                               float* out, int B, int M, int K, int W, int N,
                               void* stream) {
+  // single-channel tables only: no surface decodes a multichannel one in
+  // integer mode
   return launch_decode_tiles<IntOp>(positions, atoms, codes, count, amp_step, rep_q, out, B, M, K, W, N,
-                                    stream);
+                                    1, stream);
 }

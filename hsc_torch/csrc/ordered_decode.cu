@@ -3,10 +3,15 @@
 // tile of a block, events staged and listed per tile.
 //
 // Replaces: hsc_tpu/ops/decode_kernel.py :: _decode_kernel (the Pallas
-// kernel behind mp_decode_pallas).  Spec (hsc_tpu/oracle/mp.py :: mp_decode):
+// kernel behind mp_decode_pallas, which takes C == 1 only; the JAX package
+// decodes a multichannel bank through XLA).  Spec (hsc_tpu/oracle/mp.py ::
+// mp_decode):
 //   for i < count, in stream order:
 //     c_hat = f32(code_i * scale)
-//     out[pos_i + u] = f32(out[pos_i + u] + f32(c_hat * bank[atom_i][u]))
+//     out[pos_i + u, c] = f32(out[pos_i + u, c] + f32(c_hat * bank[atom_i][u, c]))
+// A bank of C > 1 channels is the level-space decode of a level >= 1 (its
+// augmented bank, C the atoms of the level below); the walk runs on the
+// flattened rows (decode_tiles.cuh), so nothing here depends on C.
 // The plain PyTorch version is hsc_torch/ops/decode.py :: mp_decode_batch_torch.
 //
 // Float addition is not associative, so each sample must add its own
@@ -44,8 +49,8 @@ struct OrderedOp {
 
 extern "C" int hsc_ordered_decode(const int* positions, const int* atoms, const int* codes,
                                   const int* count, const float* scale, const float* bank,
-                                  float* out, int B, int M, int K, int W, int N,
+                                  float* out, int B, int M, int K, int W, int N, int C,
                                   void* stream) {
-  return launch_decode_tiles<OrderedOp>(positions, atoms, codes, count, scale, bank, out, B, M, K, W, N,
+  return launch_decode_tiles<OrderedOp>(positions, atoms, codes, count, scale, bank, out, B, M, K, W, N, C,
                                         stream);
 }

@@ -24,12 +24,18 @@
 // The map is 0.05% dense, so the design never touches it:
 //
 //  1. cell_kernel, one CTA per block: the live events (index < count, on the
-//     map) sorted by the key pos * C + atom in shared memory (bitonic), equal
-//     keys merged into int32 cell sums, written in key order; an index of
-//     where the cells of each run of kIndexStride positions start; e0 (f32
+//     map) sorted by the key pos * C + atom, equal keys merged into int32
+//     cell sums, written in key order; an index of where the cells of each
+//     run of kIndexStride positions start; e0 (f32
 //     squares summed in double in a fixed order, so it is deterministic) and
 //     the singleton peak.  O(M log^2 M) per block: the JAX package's
-//     aggregate_codes is an O(M^2) equality matrix.
+//     aggregate_codes is an O(M^2) equality matrix.  The sort is bitonic
+//     over P, the next power of two >= M: in shared memory while its 3 P
+//     ints (keys, codes, cell counts) fit the card's opt-in limit (P <=
+//     16384 on an H100), past that in the block's own slice of a global
+//     workspace with the same network, barriers and run sums.  That route
+//     is a chain of dependent L2 round trips per compare-exchange: slow,
+//     but it keeps every event count CodecConfig admits on the card.
 //  2. score_kernel, grid (tiles of kTile positions, blocks): a CTA reads the
 //     cells of its window [t0, t0 + kTile + W - 1) from the index (one
 //     contiguous range: no map scan, no search, no atomics on shared memory),
@@ -67,7 +73,7 @@
 namespace {
 
 constexpr int kCellThreads = 512;
-constexpr int kMaxEvents = 8192;   // events per block the cell kernel sorts
+constexpr int kMaxEvents = 1 << 24;  // events per block: 3 P and the sort's indexes stay int
 constexpr int kIndexStride = 32;   // positions per index entry
 constexpr int kTile = 128;         // score positions per CTA, one per thread
 constexpr int kGroups = 4;         // atom groups per CTA
@@ -132,11 +138,16 @@ cell_kernel(const int* __restrict__ positions,  // [B, M]
             int* __restrict__ index,            // [B, n_index]
             float* __restrict__ e0,             // [B]
             unsigned int* __restrict__ peak_bits,  // [B] singleton peak
+            int* __restrict__ sort_ws,          // null, or [B, 3 P]: the sort in device memory
             int M, int P, int N, int C, int npos, int n_index) {
   extern __shared__ int smem[];
-  int* s_key = smem;            // [P]
-  int* s_code = smem + P;       // [P]; a run's first slot ends with its sum
-  int* s_cell = smem + 2 * P;   // [P] cells before each slot
+  // the sort's arrays: in shared memory, or in this block's slice of the
+  // workspace (__syncthreads orders a CTA's global writes as it does its
+  // shared ones, so the network below is the same code on either)
+  int* sort = sort_ws ? sort_ws + static_cast<size_t>(blockIdx.x) * 3 * P : smem;
+  int* s_key = sort;            // [P]
+  int* s_code = sort + P;       // [P]; a run's first slot ends with its sum
+  int* s_cell = sort + 2 * P;   // [P] cells before each slot
   __shared__ int s_warp[32];
   __shared__ double s_e0[kCellThreads / 32];
   __shared__ float s_peak[kCellThreads / 32];
@@ -382,41 +393,97 @@ score_kernel(const int* __restrict__ cell_key,    // [B, M]
   if ((tid & 31) == 0 && peak > 0.0f) atomicMax(&peak_bits[b], __float_as_uint(peak));
 }
 
+// the sort's length: the next power of two >= M
+int sort_len(int M) {
+  int P = 1;
+  while (P < M) P <<= 1;
+  return P;
+}
+
+// The most dynamic shared memory the cell kernel may ask for on the current
+// device: the card's opt-in limit per block less its static shared memory.
+// On first use on a device it also lifts both kernels' limits to that, once,
+// so that no launch sets a function attribute.
+cudaError_t dynamic_smem_limit(int* bytes) {
+  constexpr int kMaxDevices = 64;
+  static int limit[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && limit[dev] > 0) {
+    *bytes = limit[dev];
+    return cudaSuccess;
+  }
+  int optin = 0;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  int v = 0;
+  const void* kernels[2] = {reinterpret_cast<const void*>(cell_kernel),
+                            reinterpret_cast<const void*>(score_kernel)};
+  for (int i = 0; i < 2; ++i) {
+    cudaFuncAttributes fa;
+    err = cudaFuncGetAttributes(&fa, kernels[i]);
+    if (err != cudaSuccess) return err;
+    const int room = optin - static_cast<int>(fa.sharedSizeBytes);
+    err = cudaFuncSetAttribute(kernels[i], cudaFuncAttributeMaxDynamicSharedMemorySize, room);
+    if (err != cudaSuccess) return err;
+    if (i == 0) v = room;
+  }
+  if (dev < kMaxDevices) limit[dev] = v;
+  *bytes = v;
+  return cudaSuccess;
+}
+
 }  // namespace
 
+// Ints of global workspace per block that the cell kernel's sort of M events
+// needs on the current device: 0 while it fits in shared memory, else 3 P
+// (keys, codes and cell counts).  A CUDA error is returned negated.
+extern "C" int hsc_int8_init_workspace(int M) {
+  if (M < 0 || M > kMaxEvents) return -static_cast<int>(cudaErrorInvalidValue);
+  int limit = 0;
+  const cudaError_t err = dynamic_smem_limit(&limit);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  const int P = sort_len(M);
+  return 3 * static_cast<size_t>(P) * sizeof(int) <= static_cast<size_t>(limit) ? 0 : 3 * P;
+}
+
 // `work` holds 2 * B * M + B * n_index ints: the cells' keys and sums, then
-// the index.  The caller's n_index must be ceil(N / 32) + 1.
+// the index.  The caller's n_index must be ceil(N / 32) + 1.  `sort_ws` is
+// null, or B slices of hsc_int8_init_workspace(M) ints that hold the sort
+// where it does not fit in shared memory.
 extern "C" int hsc_int8_init(const int* positions, const int* atoms, const int* codes,
                              const int* count, const float* prev_scale, const void* planes,
-                             int* work, float* out, float* e0, unsigned int* peak_bits,
-                             float step, int B, int M, int N, int C, int n_raw, int W,
-                             int n_index, void* stream) {
+                             int* work, int* sort_ws, float* out, float* e0,
+                             unsigned int* peak_bits, float step, int B, int M, int N, int C,
+                             int n_raw, int W, int n_index, void* stream) {
   const int npos = N - W + 1;
   if (B == 0) return cudaSuccess;
   if (B > 65535 || M < 0 || M > kMaxEvents || C < 1 || n_raw < 1 || W < 1 || npos < 1 ||
       static_cast<long long>(N) * C >= kSentinel ||
       n_index != (N + kIndexStride - 1) / kIndexStride + 1)
     return cudaErrorInvalidValue;
-  int P = 1;
-  while (P < M) P <<= 1;
-  const int smem = 3 * P * static_cast<int>(sizeof(int));
-  cudaError_t err = cudaFuncSetAttribute(cell_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int limit = 0;
+  cudaError_t err = dynamic_smem_limit(&limit);
   if (err != cudaSuccess) return err;
+  const int P = sort_len(M);
+  const bool in_smem = 3 * static_cast<size_t>(P) * sizeof(int) <= static_cast<size_t>(limit);
+  if (!in_smem && sort_ws == nullptr) return cudaErrorInvalidValue;  // needs the workspace
+  const int smem = in_smem ? 3 * P * static_cast<int>(sizeof(int)) : 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int* cell_key = work;
   int* cell_val = work + static_cast<size_t>(B) * M;
   int* index = work + 2 * static_cast<size_t>(B) * M;
   cell_kernel<<<B, kCellThreads, smem, s>>>(positions, atoms, codes, count, prev_scale, cell_key,
-                                            cell_val, index, e0, peak_bits, M, P, N, C, npos,
+                                            cell_val, index, e0, peak_bits,
+                                            in_smem ? nullptr : sort_ws, M, P, N, C, npos,
                                             n_index);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // a staged plane row holds the chunks that any kTile consecutive offsets
-  // can meet, or the whole padded row when that is shorter
+  // can meet, or the whole padded row when that is shorter (at most 68 KB)
   const int n_chunks = min((W + kPlaneChunk - 1) / kPlaneChunk, kTile / kPlaneChunk + 1);
   const int plane_smem = kCellRound * kRows * n_chunks * static_cast<int>(sizeof(uint4));
-  err = cudaFuncSetAttribute(score_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plane_smem);
-  if (err != cudaSuccess) return err;
   const dim3 grid((npos + kTile - 1) / kTile, B);
   score_kernel<<<grid, kThreads, plane_smem, s>>>(cell_key, cell_val, index, prev_scale,
                                                   static_cast<const uint4*>(planes), out, peak_bits,

@@ -21,6 +21,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..dictionary import MultilevelDictionary
+from ..io import pack_corpus, unpack_corpus
 from ..ops.decode import mp_decode_batch_torch, mp_decode_integer_batch_torch
 from ..ops.decode_integer_kernel import mp_decode_integer_batch
 from ..ops.decode_kernel import mp_decode_batch
@@ -62,6 +63,22 @@ def check_dictionary(mld) -> None:
 def to_host(enc: EncodedBlock) -> EncodedBlock:
     """A device `EncodedBlock` as NumPy arrays."""
     return EncodedBlock(*(v.cpu().numpy() for v in enc))
+
+
+def pad_streams(streams, cap: int):
+    """LevelStreams as fixed-shape host decode arrays ``(pos, atm, cds, cnt,
+    scl)`` ([B, cap] / [B]), zero-padded past each stream's events."""
+    nb = len(streams)
+    pos = np.zeros((nb, cap), np.int32)
+    atm = np.zeros((nb, cap), np.int32)
+    cds = np.zeros((nb, cap), np.int32)
+    cnt = np.zeros((nb,), np.int32)
+    scl = np.zeros((nb,), np.float32)
+    for b, s in enumerate(streams):
+        n = s.positions.shape[0]
+        pos[b, :n], atm[b, :n], cds[b, :n], cnt[b] = s.positions, s.atoms, s.codes, n
+        scl[b] = np.float32(s.scale)
+    return pos, atm, cds, cnt, scl
 
 
 def level_streams(enc: EncodedBlock) -> list[LevelStream]:
@@ -188,8 +205,8 @@ class ConvolutionalMatchingPursuit(nn.Module):
 
 
 class ConvolutionalSparseCoder(nn.Module):
-    """Single-level encoder (reference: `hsc/modeling.py ::
-    ConvolutionalSparseCoder.encode`)."""
+    """Single-level encode/reconstruct pair (reference: `hsc/modeling.py ::
+    ConvolutionalSparseCoder.encode / reconstruct`)."""
 
     def __init__(
         self, mld: MultilevelDictionary, level: int = 0, backend: str = "auto", *, device
@@ -214,8 +231,25 @@ class ConvolutionalSparseCoder(nn.Module):
             device=device,
         )
 
+    def encode(self, x) -> LevelStream:
+        """Encode one block ``[N, C]`` (or ``[N]``): the batched encode at
+        B = 1."""
+        return self.encode_batch(np.array(x, np.float32)[None])[0]
+
     def encode_batch(self, xs) -> list[LevelStream]:
         return level_streams(to_host(self.mp.compute_coefficients_batch(xs)))
+
+    def reconstruct(self, stream: LevelStream, n: int | None = None) -> np.ndarray:
+        """Decode one stream in this level's space -> ``[n, C]`` float32
+        (`n` defaults to the level's sequence length), bitwise
+        `oracle.mp.mp_decode` against the augmented bank: the ordered decode
+        (the CUDA kernel on the card, any C) at B = 1."""
+        if n is None:
+            n = self.cfg.seq_len(self.level)
+        cap = max(self.mp.num_coefs, 1, int(stream.positions.shape[0]))
+        args = [torch.from_numpy(a).to(self.mp.device) for a in pad_streams([stream], cap)]
+        dec = mp_decode_batch if self.mp.backend == "cuda" else mp_decode_batch_torch
+        return dec(*args, self.mp.bank, n=int(n))[0].cpu().numpy()
 
 
 class HierarchicalConvolutionalSparseCoder(nn.Module):
@@ -281,10 +315,26 @@ class HierarchicalConvolutionalSparseCoder(nn.Module):
                 seq = self.handoff(level, enc)
         return levels
 
+    def encode(self, x) -> list[LevelStream]:
+        """Encode one block ``[N]`` (or ``[N, 1]``) -> one stream per level:
+        the batched encode at B = 1."""
+        return self.encode_batch(np.array(x, np.float32)[None])[0]
+
     def encode_batch(self, xs) -> list[list[LevelStream]]:
         """Encode ``[B, N]`` blocks -> per-block lists of per-level streams."""
         per_level = [level_streams(to_host(e)) for e in self.encode_batch_device(xs)]
         return [list(block) for block in zip(*per_level)]
+
+    def reconstruct(self, top_stream: LevelStream, level=None, mode=None, rep_bits=None) -> np.ndarray:
+        """Signal-space reconstruction ``[block_size]`` of one stream of
+        `level` (default: the top), bitwise `oracle.hierarchical_decode`
+        (mode 'ordered') or `oracle.mp.mp_decode_integer` (mode 'integer'):
+        the batched decode at B = 1, padded to the reference's capacity."""
+        level = self.cfg.num_levels - 1 if level is None else level
+        mode = self.cfg.decode_mode if mode is None else mode
+        cap = max(self.cfg.num_coefs[level], 1, int(top_stream.positions.shape[0]))
+        dev = self._decode_device_call(*pad_streams([top_stream], cap), level, mode, rep_bits)
+        return dev[0, :, 0].cpu().numpy()
 
     def reconstruct_batch(self, streams, level=None, mode=None, rep_bits=None) -> np.ndarray:
         """Batched reconstruction ``[B, block_size]``, bitwise
@@ -296,7 +346,11 @@ class HierarchicalConvolutionalSparseCoder(nn.Module):
     def reconstruct_batch_device(self, streams, level=None, mode=None, rep_bits=None):
         """`reconstruct_batch` without the host copy: a device tensor
         ``[B, block_size, 1]``."""
-        pos, atm, cds, cnt, scl, level, mode = self._decode_arrays(streams, level, mode)
+        return self._decode_device_call(*self._decode_arrays(streams, level, mode), rep_bits)
+
+    def _decode_device_call(self, pos, atm, cds, cnt, scl, level, mode, rep_bits):
+        """The device decode of padded host arrays (`pad_streams`) ->
+        ``[B, block_size, 1]``; the padding changes no output bit."""
         cuda = self.backend == "cuda"
         if mode == "integer":
             rep_q, step = self._rep_q(level, rep_bits or self.cfg.rep_bits)
@@ -325,14 +379,23 @@ class HierarchicalConvolutionalSparseCoder(nn.Module):
             # streams longer than this coder's budget (containers are
             # self-describing): bucket to the next power of two
             cap = 1 << (need - 1).bit_length()
-        nb = len(streams)
-        pos = np.zeros((nb, cap), np.int32)
-        atm = np.zeros((nb, cap), np.int32)
-        cds = np.zeros((nb, cap), np.int32)
-        cnt = np.zeros((nb,), np.int32)
-        scl = np.zeros((nb,), np.float32)
-        for b, s in enumerate(streams):
-            n = s.positions.shape[0]
-            pos[b, :n], atm[b, :n], cds[b, :n], cnt[b] = s.positions, s.atoms, s.codes, n
-            scl[b] = np.float32(s.scale)
-        return pos, atm, cds, cnt, scl, level, mode
+        return (*pad_streams(streams, cap), level, mode)
+
+    # -- corpus pipeline ------------------------------------------------------
+
+    def encode_corpus(self, blocks: np.ndarray) -> bytes:
+        """Encode ``[B, block_size]`` and bit-pack the top-level streams."""
+        top = self.cfg.num_levels - 1
+        return pack_corpus(self.cfg, [[(top, streams[top])] for streams in self.encode_batch(blocks)])
+
+    def decode_corpus(self, blob: bytes) -> np.ndarray:
+        """Decode a packed corpus back to ``[B, block_size]`` float32, each
+        block's streams summed in container order."""
+        cfg, blocks = unpack_corpus(blob)
+        if cfg != self.cfg:
+            raise ValueError("corpus config does not match this coder")
+        out = np.zeros((len(blocks), cfg.block_size), dtype=np.float32)
+        for b, streams in enumerate(blocks):
+            for level, stream in streams:
+                out[b] += self.reconstruct(stream, level=level)
+        return out

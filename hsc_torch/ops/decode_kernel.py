@@ -4,11 +4,15 @@
 
 `mp_decode_batch` is the dispatcher: a CPU tensor runs the plain version
 (`ops.decode.mp_decode_batch_torch`); a CUDA tensor launches the kernel or
-raises — there is no fallback.  Like the Pallas wrapper, the kernel takes
-single-channel banks only (C == 1, which is every signal-space
-representation bank); it takes any atom width and any block length (a
-CTA owns a tile of `TILE` samples, and no shared-memory size depends on
-either).
+raises — there is no fallback.  The kernel takes a bank of any number of
+channels C: C == 1 for every signal-space representation bank, C > 1 for
+the level-space decode of a level >= 1 against its augmented bank
+(`models.coder.ConvolutionalSparseCoder.reconstruct`), where the Pallas
+wrapper takes C == 1 only and the JAX package falls back to XLA.  It runs
+on each block's row of ``n * C`` floats flattened, where an event adds its
+atom's ``W * C`` taps at offset ``pos * C``, so it takes any atom width,
+block length and channel count (a CTA owns a tile of `TILE` elements, and
+no shared-memory size depends on them).
 """
 
 from __future__ import annotations
@@ -21,8 +25,8 @@ from .mp_kernels import check_tensor
 
 # kernel launches since import (or since a caller reset it to 0)
 LAUNCHES = 0
-# samples one CTA of either decode kernel owns (kTile in
-# csrc/decode_tiles.cuh): a 64-block flagship batch is 1024 CTAs
+# elements of a flattened row one CTA of either decode kernel owns (kTile
+# in csrc/decode_tiles.cuh): a 64-block flagship batch is 1024 CTAs
 TILE = 1024
 
 
@@ -36,8 +40,8 @@ def mp_decode_batch(
     *,
     n: int,
 ) -> torch.Tensor:
-    """Batched ordered decode -> ``[B, n, 1]`` float32, bitwise the plain
-    version and `oracle.mp.mp_decode`."""
+    """Batched ordered decode against ``bank [K, W, C]`` -> ``[B, n, C]``
+    float32, bitwise the plain version and `oracle.mp.mp_decode`."""
     if positions.device.type == "cpu":
         return mp_decode_batch_torch(positions, atoms, codes, count, scale, bank, n=n)
     if positions.device.type != "cuda":
@@ -48,20 +52,20 @@ def mp_decode_batch(
         raise ValueError("positions must be [B, M] and bank [K, W, C]")
     b, m = positions.shape
     k, w, c = bank.shape
-    if c != 1:
-        raise ValueError("the ordered-decode kernel supports single-channel banks")
     if not 0 < w <= n:
         raise ValueError(f"atom width {w} does not fit a block of {n}")
+    if c < 1 or n * c > 2**31 - 1 - TILE:
+        raise ValueError(f"a block of {n} x {c} channels does not fit the kernel's int32 offsets")
     for name, t in (("positions", positions), ("atoms", atoms), ("codes", codes)):
         check_tensor(t, name, torch.int32, (b, m), dev)
     check_tensor(count, "count", torch.int32, (b,), dev)
     check_tensor(scale, "scale", torch.float32, (b,), dev)
-    check_tensor(bank, "bank", torch.float32, (k, w, 1), dev)
+    check_tensor(bank, "bank", torch.float32, (k, w, c), dev)
 
-    out = torch.empty((b, n, 1), dtype=torch.float32, device=dev)
+    out = torch.empty((b, n, c), dtype=torch.float32, device=dev)
     _build.launch(
         "hsc_ordered_decode", dev, positions.data_ptr(), atoms.data_ptr(), codes.data_ptr(),
-        count.data_ptr(), scale.data_ptr(), bank.data_ptr(), out.data_ptr(), b, m, k, w, int(n),
+        count.data_ptr(), scale.data_ptr(), bank.data_ptr(), out.data_ptr(), b, m, k, w, int(n), c,
     )
     LAUNCHES += 1
     return out

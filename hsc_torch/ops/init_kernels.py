@@ -11,9 +11,12 @@ launches the kernels or raises — there is no fallback.  On the card no dense
 sorted cell sums (the counterpart of the Pallas path's `aggregate_codes`),
 a second writes every score row from them.  The scores and the peak are
 bitwise the plain version's; e0 is an f32 sum in another order (within
-1e-6 of it, relative).  It takes every geometry `CodecConfig` admits for
-hier_init='int8' (``W * C <= 65535``) with at most `MAX_EVENTS` events per
-block.
+1e-6 of it, relative).  It takes every geometry and every event count
+`CodecConfig` admits for hier_init='int8' (``W * C <= 65535``; up to 65281
+events per block at amp_bits=16): the cell kernel sorts a block's events in
+shared memory where they fit the card (16384 on an H100) and past that in a
+global workspace that `int8_init` allocates (`hsc_int8_init_workspace` says
+how much).
 """
 
 from __future__ import annotations
@@ -27,9 +30,7 @@ from .mp_kernels import check_tensor
 # kernel launches since import (or since a caller reset it to 0); one launch
 # is one call's pair of kernels
 LAUNCHES = 0
-# the .cu's kMaxEvents (events per block the cell kernel sorts in shared
-# memory) and kIndexStride (positions per entry of its cell index)
-MAX_EVENTS = 8192
+# the .cu's kIndexStride (positions per entry of the cell kernel's index)
 INDEX_STRIDE = 32
 
 
@@ -79,8 +80,6 @@ def int8_init(
     npos = n_map - w + 1
     if npos < 1:
         raise ValueError(f"atom width {w} does not fit a map of {n_map} positions")
-    if m > MAX_EVENTS:
-        raise ValueError(f"int8_init takes at most {MAX_EVENTS} events per block, got {m}")
     if n_map * c >= 2**31 - 1:
         raise ValueError(f"a map of {n_map} x {c} cells does not fit the kernel's int32 keys")
     for t, name in ((positions, "positions"), (atoms, "atoms"), (codes, "codes")):
@@ -96,11 +95,18 @@ def int8_init(
     peak_bits = torch.empty((b,), dtype=torch.int32, device=dev)
     n_index = -(-n_map // INDEX_STRIDE) + 1
     work = torch.empty((2 * b * m + b * n_index,), dtype=torch.int32, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        ws_ints = lib.hsc_int8_init_workspace(m)
+    if ws_ints < 0:
+        _build.check(lib, -ws_ints, f"hsc_int8_init_workspace({m})")
+    # B slices of the cell kernel's sort, where it does not fit in shared memory
+    sort_ws = torch.empty((b * ws_ints,), dtype=torch.int32, device=dev) if ws_ints else None
     _build.launch(
         "hsc_int8_init", dev, positions.data_ptr(), atoms.data_ptr(), codes.data_ptr(),
         count.data_ptr(), prev_scale.data_ptr(), planes_cnw.data_ptr(), work.data_ptr(),
-        scores0.data_ptr(), e0.data_ptr(), peak_bits.data_ptr(), float(step), b, m, n_map, c,
-        n_raw, w, n_index,
+        None if sort_ws is None else sort_ws.data_ptr(), scores0.data_ptr(), e0.data_ptr(),
+        peak_bits.data_ptr(), float(step), b, m, n_map, c, n_raw, w, n_index,
     )
     LAUNCHES += 1
     # non-negative floats order like their bits: the kernels' integer max of

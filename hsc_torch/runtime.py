@@ -2,20 +2,33 @@
 
 `CorpusEncoder` runs the codec's main path: batches of blocks through the
 pipelined device encode (CUDA kernels on a card), host bit-packing into the
-container format (`io.bitstream`, the port's copy), and the batched integer
-decode.  The host code is copied from `hsc_tpu.runtime`, because the
-container bytes depend on it: a container written here is byte-identical to
-the JAX package's for the same streams.
+container format (`io.bitstream`, the port's copy), and the batched decode.
+Around it, as in the JAX package:
 
-It covers every hierarchy depth, both decode modes, and the top-only and
-distributed (`oracle.mp.to_distributed`) container forms.  The journal,
-constant-bitrate mode, meshes, the seek index and random-access decode
+- serving: `encode(index=True)` appends the seek-index footer;
+  `decode_stream(indices=...)` and `decode_blocks` decode only the blocks
+  asked for, and `CorpusReader` serves rows of a memory-mapped container;
+- rate control: `target_bps` keeps the longest greedy event prefixes that
+  fit a byte budget, per block (`rate_mode='block'`) or across the corpus
+  (`rate_mode='corpus'`, `allocate_corpus_prefixes`);
+- the block journal (`io.journal`, the port's copy): a re-encode into the
+  same `journal_dir` reuses the journaled payloads and runs no device work;
+  per-process shards (`encode_shard`, `encode_multihost`) assemble into
+  one container (`assemble_container`); `metrics_path` gets JSONL records.
+
+The host code is copied from `hsc_tpu.runtime`, quirks included, because
+the container bytes depend on it: a container written here is
+byte-identical to the JAX package's for the same streams.  Meshes (`mesh=`)
 raise `NotImplementedError` naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
 
+import mmap
+import os
+import re
 import struct
+import time
 from collections import deque
 from itertools import islice
 
@@ -23,19 +36,273 @@ import numpy as np
 
 from .config import CodecConfig
 from .dictionary import MultilevelDictionary
-from .io.bitstream import MAGIC, VERSION, iter_blocks, pack_stream, peek_corpus_header
+from .io.bitstream import (
+    MAGIC,
+    VERSION,
+    _index_footer,
+    _parse_corpus_header,
+    iter_blocks,
+    pack_stream,
+    peek_corpus_header,
+    read_index,
+    scan_block_offsets,
+    unpack_block,
+)
+from .io.journal import EncodeJournal
 from .models.coder import HierarchicalConvolutionalSparseCoder, level_streams, to_host
 from .ops.pipeline import encode_batches_pipelined, encode_hierarchical_batches_pipelined
 from .oracle.mp import LevelStream, to_distributed
+from .utils.metrics import MetricsLogger
 
 
 def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1, {item!r})")
 
 
-def _join_container(cfg: CodecConfig, records, n_blocks: int) -> bytes:
-    """Assemble header + block records (`hsc_tpu.runtime._join_container`
-    without the seek-index footer)."""
+def _refuse_mesh(mesh) -> None:
+    if mesh is not None:
+        raise _not_ported("mesh (data-parallel encode/decode)", "Parallel")
+
+
+def _journal_name(process_index: int) -> str:
+    """Per-process journal file name: process 0 keeps the single-process
+    name so existing journals resume unchanged."""
+    return "corpus" if process_index == 0 else f"corpus.p{process_index}"
+
+
+def parse_journal_name(base: str) -> int | None:
+    """Inverse of `_journal_name`: 'corpus' -> 0, 'corpus.pN' -> N, anything
+    else -> None."""
+    if base == "corpus":
+        return 0
+    m = re.fullmatch(r"corpus\.p(\d+)", base)
+    return int(m.group(1)) if m else None
+
+
+def journal_fingerprint(
+    cfg: CodecConfig, distributed: bool = False,
+    target_bps: float | None = None, rate_mode: str = "block",
+) -> str:
+    """The journal's resume fingerprint: everything that changes journaled
+    PAYLOAD bytes beyond the codec config — the distributed representation
+    and the constant-bitrate budget.  One builder (and one parser below)
+    for the writers (CorpusEncoder) and the readers (assemble_container).
+
+    rate_mode='corpus' journals carry ':cbrc=' instead of ':cbr=' — their
+    payload bytes are full-rate top-form block records (truncation and the
+    distributed split happen at container assembly), so the suffix also
+    tells assembly what emission work remains.  ':distributed' is still
+    recorded (it names the emission form, not the journal bytes, in this
+    mode)."""
+    s = cfg.to_json()
+    if distributed:
+        s += ":distributed"
+    if target_bps is not None:
+        # an int-typed rate must fingerprint identically to its float form
+        tag = "cbrc" if rate_mode == "corpus" else "cbr"
+        s += f":{tag}={float(target_bps)!r}"
+    return s
+
+
+def parse_journal_fingerprint(stored: str):
+    """Inverse of `journal_fingerprint`:
+    (config_json, distributed, target_bps, rate_mode).  Anchored on the
+    suffix: the config JSON always ends in '}', which the cbr value's
+    charset excludes, so the match never eats into the JSON."""
+    m = re.search(r"(:distributed)?(?::(cbr|cbrc)=([^:}]+))?$", stored)
+    t = m.group(3)
+    return (
+        stored[: m.start()],
+        m.group(1) is not None,
+        float(t) if t is not None else None,
+        "corpus" if m.group(2) == "cbrc" else "block",
+    )
+
+
+def multihost_split(n_global: int, n_processes: int) -> list[tuple[int, int]]:
+    """Canonical block -> process assignment (`hsc_tpu`'s
+    `DataParallelEncoder.multihost_split`): with ``nl = ceil(n_global /
+    P)``, process p owns global blocks [p*nl, min((p+1)*nl, n_global)).
+    Both endpoints clamp to n_global, so trailing processes of a short
+    corpus own valid empty ranges (never inverted ones)."""
+    nl = -(-n_global // max(n_processes, 1))
+    return [
+        (min(p * nl, n_global), min((p + 1) * nl, n_global))
+        for p in range(n_processes)
+    ]
+
+
+def _prefix_stream(stream, k: int):
+    """The first-k-events greedy prefix of a stream (a valid stream itself:
+    the first k events of a budget-N encode ARE the budget-k encode).
+    Truncated prefixes carry unknown residual energy — zeroed, matching
+    unpacked streams (energies are never serialized)."""
+    if k >= int(stream.positions.shape[0]):
+        return stream
+    return LevelStream(
+        positions=stream.positions[:k],
+        atoms=stream.atoms[:k],
+        codes=stream.codes[:k],
+        scale=np.float32(stream.scale),
+        energy0=0.0,
+        energy_res=0.0,
+    )
+
+
+def allocate_corpus_prefixes(
+    streams: list, budget: int, emit
+) -> tuple[list[bytes], list[int]]:
+    """Corpus-level constant-bitrate allocation (rate_mode='corpus'), a copy
+    of `hsc_tpu.runtime.allocate_corpus_prefixes`.
+
+    Chooses per-block greedy-prefix lengths ``k_b`` maximizing explained
+    energy subject to ``sum(len(emit(prefix_b(k_b)))) <= budget``.  The
+    per-event gain ``(code*scale)^2`` is not monotone along a stream, so the
+    allocation runs on each block's upper concave envelope of cumulative
+    gain against bytes: hull segments of every block merge in decreasing
+    gain-per-byte order, charged at the block's mean packed bytes/event;
+    then an exact repair pass enforces the budget on real packed sizes and
+    a bounded growth pass spends what is left.  Deterministic from the
+    streams and `emit` alone (float64 gains, ties broken by block index).
+    Returns (payloads, prefix_lengths), block order preserved."""
+    nb = len(streams)
+    packs: list[dict[int, bytes]] = [{} for _ in range(nb)]
+
+    def size(b: int, k: int) -> int:
+        d = packs[b]
+        if k not in d:
+            d[k] = emit(_prefix_stream(streams[b], k))
+        return len(d[k])
+
+    ns = [int(s.positions.shape[0]) for s in streams]
+    base = sum(size(b, 0) for b in range(nb))
+    if base > budget:
+        raise ValueError(
+            f"corpus budget {budget} bytes is below the empty-stream "
+            f"floor ({base} bytes for {nb} blocks)"
+        )
+    gains = [
+        (s.codes.astype(np.float64) * np.float64(s.scale)) ** 2
+        for s in streams
+    ]
+    # mean bytes/event from one full pack
+    est = [
+        max((size(b, ns[b]) - size(b, 0)) / ns[b], 1e-9) if ns[b] else 1.0
+        for b in range(nb)
+    ]
+    # upper concave hull of each block's (k, cumulative gain) polyline;
+    # segments carry their mean gain-per-byte as the merge key
+    segments = []  # (-gain_per_byte, b, k_from, k_to)
+    for b in range(nb):
+        if not ns[b]:
+            continue
+        cum = np.concatenate([[0.0], np.cumsum(gains[b])])
+        hull = [0]
+        for j in range(1, len(cum)):
+            while len(hull) >= 2:
+                a, m = hull[-2], hull[-1]
+                # pop m while it lies on/below chord a->j (keeps slopes
+                # strictly decreasing along the hull)
+                if (cum[m] - cum[a]) * (j - m) <= (cum[j] - cum[m]) * (m - a):
+                    hull.pop()
+                else:
+                    break
+            hull.append(j)
+        for a, j in zip(hull, hull[1:]):
+            slope = (cum[j] - cum[a]) / ((j - a) * est[b])
+            segments.append((-slope, b, a, j))
+    segments.sort()
+
+    k = [0] * nb
+    spend = float(base)
+    for negs, b, a, j in segments:
+        if k[b] != a:
+            continue  # an earlier boundary cut this block mid-hull
+        cost = (j - a) * est[b]
+        if spend + cost <= budget:
+            k[b] = j
+            spend += cost
+        else:
+            take = int((budget - spend) // est[b])
+            if take > 0:
+                k[b] = a + take
+                spend += take * est[b]
+
+    # exact repair on real packed sizes
+    total = sum(size(b, k[b]) for b in range(nb))
+    while total > budget:
+        # drop the lowest-ratio frontier event
+        _, b = min(
+            (gains[b][k[b] - 1] / max(est[b], 1e-9), b)
+            for b in range(nb)
+            if k[b] > 0
+        )
+        total -= size(b, k[b]) - size(b, k[b] - 1)
+        k[b] -= 1
+    closed: set[int] = set()
+    while len(closed) < 8:  # bounded growth pass (rice wobble is small)
+        cands = [
+            (-gains[b][k[b]] / max(est[b], 1e-9), b)
+            for b in range(nb)
+            if k[b] < ns[b] and b not in closed
+        ]
+        if not cands:
+            break
+        _, b = min(cands)
+        delta = size(b, k[b] + 1) - size(b, k[b])
+        if total + delta <= budget:
+            total += delta
+            k[b] += 1
+        else:
+            closed.add(b)
+    return [packs[b][k[b]] for b in range(nb)], k
+
+
+def _emit_record(cfg: CodecConfig, stream, distributed: bool) -> bytes:
+    """One block record of a top-level stream: top form, or the distributed
+    representation (each event at the level where its atom is raw)."""
+    top = cfg.num_levels - 1
+    if distributed and cfg.num_levels > 1:
+        parts = to_distributed(cfg, stream)
+        return struct.pack("<B", len(parts)) + b"".join(
+            pack_stream(cfg, level, s) for level, s in parts
+        )
+    return struct.pack("<B", 1) + pack_stream(cfg, top, stream)
+
+
+def apply_corpus_cbr(
+    cfg: CodecConfig,
+    records: list[bytes],
+    target_bps: float,
+    distributed: bool = False,
+) -> list[bytes]:
+    """Re-emit full-rate top-form block records under a corpus-level
+    constant-bitrate budget (``target_bps * block_size * n_blocks / 8``
+    bytes across the whole block region): unpack each record's top stream,
+    allocate prefixes corpus-wide (`allocate_corpus_prefixes`), and pack
+    the chosen prefixes in the emission form (the distributed split is
+    applied here: the greedy prefix order only exists on the top stream)."""
+    top = cfg.num_levels - 1
+    streams = []
+    for rec in records:
+        parts, _ = unpack_block(cfg, rec, 0)
+        if len(parts) != 1 or parts[0][0] != top:
+            raise ValueError(
+                "corpus-rate allocation needs top-form records (one "
+                f"level-{top} stream per block); got "
+                f"{[lv for lv, _ in parts]}"
+            )
+        streams.append(parts[0][1])
+    budget = int(target_bps * cfg.block_size * len(records) / 8)
+    payloads, _ = allocate_corpus_prefixes(
+        streams, budget, lambda s: _emit_record(cfg, s, distributed)
+    )
+    return payloads
+
+
+def _join_container(cfg: CodecConfig, records, n_blocks: int, index: bool) -> bytes:
+    """Assemble header + block records (+ the optional seek-index footer
+    from the offsets the assembly already knows — no re-scan)."""
     cfg_json = cfg.to_json().encode()
     parts = [
         MAGIC,
@@ -43,12 +310,76 @@ def _join_container(cfg: CodecConfig, records, n_blocks: int) -> bytes:
         cfg_json,
         struct.pack("<I", n_blocks),
     ]
-    parts.extend(records)
+    off = sum(len(p) for p in parts)
+    offsets = np.empty(n_blocks + 1, np.int64)
+    for b, rec in enumerate(records):
+        offsets[b] = off
+        parts.append(rec)
+        off += len(rec)
+    offsets[n_blocks] = off
+    if index:
+        parts.append(_index_footer(offsets))
     return b"".join(parts)
 
 
+def assemble_container(
+    cfg: CodecConfig,
+    journal_dir: str,
+    n_blocks: int,
+    n_processes: int,
+    distributed: bool = False,
+    index: bool = False,
+    target_bps: float | None = None,
+    fingerprint: str | None = None,
+    rate_mode: str = "block",
+) -> bytes:
+    """Process-0 container assembly from per-process journals: each process
+    journals its own shard under global block ids; the container comes out
+    in original block order whatever the completion order.  Absent journal
+    files (a process that never wrote a block) are skipped; their blocks
+    surface in the missing-ids error.  `fingerprint`, when given, is
+    enforced verbatim (pass through what a journal's .config holds rather
+    than rebuilding it).  rate_mode='corpus' journals hold full-rate
+    top-form records; the corpus budget is applied here, across every
+    process's shard."""
+    if fingerprint is None:
+        fingerprint = journal_fingerprint(cfg, distributed, target_bps, rate_mode)
+    journals = [
+        EncodeJournal(journal_dir, name=_journal_name(p), config_json=fingerprint)
+        for p in range(n_processes)
+        if os.path.exists(os.path.join(journal_dir, f"{_journal_name(p)}.journal"))
+    ]
+    try:
+        owner: dict[int, EncodeJournal] = {}
+        for j in journals:
+            for bid in j.done_blocks:
+                owner.setdefault(bid, j)
+        missing = [b for b in range(n_blocks) if b not in owner]
+        if missing:
+            raise ValueError(
+                f"blocks not yet encoded in any journal: {missing[:8]}..."
+            )
+        records = (owner[b].read(b) for b in range(n_blocks))
+        if rate_mode == "corpus" and target_bps is not None:
+            records = apply_corpus_cbr(cfg, list(records), target_bps, distributed)
+        return _join_container(cfg, records, n_blocks, index)
+    finally:
+        for j in journals:
+            j.close()
+
+
 class CorpusEncoder:
-    """End-to-end corpus codec around a HierarchicalConvolutionalSparseCoder."""
+    """End-to-end corpus codec around a HierarchicalConvolutionalSparseCoder.
+
+    `distributed`: emit the distributed representation instead of the
+    top-level-only stream.  `target_bps`: constant-bitrate mode — keep the
+    largest greedy event prefixes whose packed payloads fit the byte budget
+    (num_coefs stays the quality ceiling), allocated per block
+    (`rate_mode='block'`, a hard per-block cap) or across the corpus
+    (`'corpus'`: blocks journal full top-form payloads, and truncation and
+    the distributed split happen at container assembly).  `journal_dir`
+    makes the encode resumable; `metrics_path` appends JSONL records
+    (process 0 only)."""
 
     def __init__(
         self,
@@ -58,38 +389,82 @@ class CorpusEncoder:
         backend: str = "auto",
         batch_size: int = 64,
         journal_dir: str | None = None,
+        metrics_path: str | None = None,
+        process_index: int = 0,
         mesh=None,
         distributed: bool = False,
         target_bps: float | None = None,
+        rate_mode: str = "block",
     ):
-        for value, what, item in (
-            (journal_dir, "journal_dir (resumable encode)", "Runtime and CLI"),
-            (target_bps, "target_bps (constant-bitrate mode)", "Runtime and CLI"),
-            (mesh, "mesh (data-parallel encode/decode)", "Parallel"),
-        ):
-            if value is not None:
-                raise _not_ported(what, item)
+        _refuse_mesh(mesh)
         self.mld = mld
         self.cfg: CodecConfig = mld.config
         self.coder = HierarchicalConvolutionalSparseCoder(mld, backend=backend, device=device)
         self.device = self.coder.device
         self.batch_size = int(batch_size)
-        # emit the distributed representation (each event stored at the
-        # level where its atom is raw) instead of the top-level-only stream
         self.distributed = bool(distributed)
+        if target_bps is not None and not target_bps > 0:
+            raise ValueError("target_bps must be positive")
+        self.target_bps = float(target_bps) if target_bps is not None else None
+        if rate_mode not in ("block", "corpus"):
+            raise ValueError("rate_mode must be 'block' or 'corpus'")
+        self.rate_mode = rate_mode
+        self.process_index = int(process_index)
+        self.journal = (
+            EncodeJournal(
+                journal_dir,
+                name=_journal_name(self.process_index),
+                # a journal written at another rate or form must not be
+                # silently extended at this one
+                config_json=journal_fingerprint(
+                    self.cfg, self.distributed, self.target_bps, self.rate_mode
+                ),
+            )
+            if journal_dir is not None
+            else None
+        )
+        self.metrics = MetricsLogger(metrics_path, process_index)
 
     # -- encode -------------------------------------------------------------
 
-    def _pack_block(self, top_stream) -> bytes:
-        """Pack one block, no rate control
-        (`hsc_tpu.runtime.CorpusEncoder._pack_block_raw`)."""
-        top = self.cfg.num_levels - 1
-        if self.distributed and self.cfg.num_levels > 1:
-            parts = to_distributed(self.cfg, top_stream)
-            return struct.pack("<B", len(parts)) + b"".join(
-                pack_stream(self.cfg, level, s) for level, s in parts
+    def _pack_block(self, top_stream) -> tuple[bytes, int]:
+        """Pack one block -> (payload, stored event count).  Under
+        `target_bps` with rate_mode='block', bisect the event-prefix length
+        on the full per-block payload size (distributed per-level headers
+        and rice coding charged exactly), probed blobs memoized per k, then
+        scan upward while the budget still holds (rice sizes wobble).
+        rate_mode='corpus' packs the full stream in top form here."""
+        n = int(top_stream.positions.shape[0])
+        if self.target_bps is not None and self.rate_mode == "corpus":
+            return _emit_record(self.cfg, top_stream, False), n
+        if self.target_bps is None:
+            return _emit_record(self.cfg, top_stream, self.distributed), n
+
+        budget = int(self.target_bps * self.cfg.block_size / 8)
+        blobs: dict[int, bytes] = {}
+
+        def size(k: int) -> int:
+            if k not in blobs:
+                blobs[k] = _emit_record(self.cfg, _prefix_stream(top_stream, k), self.distributed)
+            return len(blobs[k])
+
+        if size(0) > budget:
+            raise ValueError(
+                f"target_bps={self.target_bps} is below the empty-stream "
+                f"floor ({size(0)} bytes/block > {budget})"
             )
-        return struct.pack("<B", 1) + pack_stream(self.cfg, top, top_stream)
+        if size(n) <= budget:
+            return blobs[n], n
+        lo, hi = 0, n  # invariant: size(lo) <= budget < size(hi)
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            if size(mid) <= budget:
+                lo = mid
+            else:
+                hi = mid
+        while lo + 1 < n and size(lo + 1) <= budget:
+            lo += 1
+        return blobs[lo], lo
 
     def _validate_blocks(self, blocks) -> np.ndarray:
         blocks = np.asarray(blocks, dtype=np.float32)
@@ -99,26 +474,64 @@ class CorpusEncoder:
             )
         return blocks
 
-    def encode(self, blocks: np.ndarray, index: bool = False) -> bytes:
-        """Encode ``[B, block_size]`` into the container format."""
-        if index:
-            raise _not_ported("index=True (the seek-index footer)", "Runtime and CLI")
-        blocks = self._validate_blocks(blocks)
-        nb = blocks.shape[0]
-        payloads: dict[int, bytes] = {}
-        self._compute_payloads(blocks, list(range(nb)), payloads)
-        return _join_container(self.cfg, (payloads[b] for b in range(nb)), nb)
+    def _emit_batched(self, enc, ids: list[int], payloads: dict[int, bytes], offset: int):
+        """Trim a host batched `EncodedBlock` to per-block streams, pack, and
+        journal under global ids ``id + offset``.  Returns (events,
+        payload_bytes, per-block SNRs dB)."""
+        events = 0
+        total_bytes = 0
+        snrs: list[float] = []
+        for bid, stream in zip(ids, level_streams(enc)):
+            n = int(stream.positions.shape[0])
+            payload, kept = self._pack_block(stream)
+            payloads[bid] = payload
+            total_bytes += len(payload)
+            # metrics count stored events; a CBR-truncated block's quality
+            # is unknown here (NaN, filtered from the mean)
+            events += kept
+            snrs.append(stream.snr_db() if kept == n else float("nan"))
+            if self.journal:
+                self.journal.record(bid + offset, payload)
+        return events, total_bytes, snrs
 
-    def _compute_payloads(self, blocks, todo, payloads) -> None:
-        """Encode `todo` (indexes into `blocks`) into `payloads`: one level
-        through the pipelined three-stage path, several through the
-        level-pipelined path; batches are uploaded per pipeline window."""
+    def _log_encode_metrics(
+        self, nblk: int, dt: float, events: int, total_bytes: int,
+        snrs: list[float], **extra,
+    ) -> None:
+        self.metrics.log(
+            {
+                "kind": "encode_batch",
+                "blocks": nblk,
+                "seconds": dt,
+                "mb_per_s": nblk * self.cfg.block_size * 4 / 1e6 / max(dt, 1e-9),
+                "events": events,
+                "coefs_per_sample": events / max(nblk * self.cfg.block_size, 1),
+                # null (not a fabricated 0 dB) when no block has a known SNR
+                "mean_snr_db": (
+                    float(np.mean(finite))
+                    if (finite := [v for v in snrs if np.isfinite(v)])
+                    else None
+                ),
+                "bits_per_sample": 8.0 * total_bytes
+                / max(nblk * self.cfg.block_size, 1),
+                **extra,
+            }
+        )
+
+    def _compute_payloads(self, blocks, todo, payloads, offset: int = 0) -> None:
+        """Encode `todo` (local indexes into `blocks`) into `payloads`,
+        journaled under global ids ``local + offset``: one level through the
+        pipelined three-stage path, several through the level-pipelined
+        path; batches are uploaded per pipeline window."""
         batches = []
         id_groups = []
         for start in range(0, len(todo), self.batch_size):
             ids = todo[start : start + self.batch_size]
             batches.append(blocks[ids][:, :, None])
             id_groups.append(ids)
+        if not batches:
+            return
+        t0 = time.perf_counter()
         if self.cfg.num_levels == 1:
             mp = self.coder.coders[0].mp
             encs = encode_batches_pipelined(
@@ -126,9 +539,106 @@ class CorpusEncoder:
             )
         else:
             encs = encode_hierarchical_batches_pipelined(batches, self.coder)[-1]
+        encs = [to_host(e) for e in encs]
+        dt = time.perf_counter() - t0
+        events = 0
+        total_bytes = 0
+        snrs: list[float] = []
         for ids, enc in zip(id_groups, encs):
-            for bid, stream in zip(ids, level_streams(to_host(enc))):
-                payloads[bid] = self._pack_block(stream)
+            e, b, sn = self._emit_batched(enc, ids, payloads, offset)
+            events += e
+            total_bytes += b
+            snrs += sn
+        self._log_encode_metrics(len(todo), dt, events, total_bytes, snrs)
+
+    def encode(self, blocks: np.ndarray, index: bool = False) -> bytes:
+        """Encode ``[B, block_size]`` into the container format; resumable —
+        journaled blocks are skipped.  `index=True` appends the seek-index
+        footer from the offsets the assembly already knows."""
+        blocks = self._validate_blocks(blocks)
+        nb = blocks.shape[0]
+        done = self.journal.done_blocks if self.journal else set()
+        todo = [b for b in range(nb) if b not in done]
+        payloads: dict[int, bytes] = {}
+        self._compute_payloads(blocks, todo, payloads)
+        records = (
+            payloads[b] if b in payloads else self.journal.read(b)
+            for b in range(nb)
+        )
+        if self.target_bps is not None and self.rate_mode == "corpus":
+            full = list(records)
+            records = apply_corpus_cbr(self.cfg, full, self.target_bps, self.distributed)
+            self.metrics.log(
+                {
+                    "kind": "corpus_cbr",
+                    "blocks": nb,
+                    "budget_bytes": int(self.target_bps * self.cfg.block_size * nb / 8),
+                    "emitted_bytes": sum(len(r) for r in records),
+                    "full_bytes": sum(len(r) for r in full),
+                }
+            )
+        return _join_container(self.cfg, records, nb, index)
+
+    # -- multi-process orchestration ----------------------------------------
+
+    def encode_shard(self, local_blocks: np.ndarray, global_start: int = 0) -> None:
+        """Encode a process-local corpus shard, journaling payloads under
+        global block ids ``global_start + i`` (process 0 assembles with
+        `assemble_container`).  Requires a journal."""
+        if self.journal is None:
+            raise ValueError("encode_shard requires a journal_dir")
+        blocks = self._validate_blocks(local_blocks)
+        done = self.journal.done_blocks
+        todo = [b for b in range(blocks.shape[0]) if b + global_start not in done]
+        self._compute_payloads(blocks, todo, {}, offset=global_start)
+
+    def encode_multihost(
+        self,
+        local_blocks: np.ndarray,
+        n_global: int,
+        n_processes: int | None = None,
+    ) -> bytes | None:
+        """Multi-process corpus encode: every process encodes and journals
+        its shard of `multihost_split` (ragged tails allowed), then process
+        0 assembles the container from all journals in a shared directory.
+        Returns the container on process 0, None elsewhere.
+
+        `n_processes` defaults to `torch.distributed`'s world size when a
+        process group is initialized, else 1; then each process waits at
+        `torch.distributed.barrier()` before assembly.  Passing it
+        explicitly (with per-encoder `process_index`) runs the shard and
+        assembly protocol in one process.  With one process and
+        process_index 0 this equals `encode`."""
+        import torch.distributed as dist
+
+        grouped = dist.is_available() and dist.is_initialized()
+        if n_processes is None:
+            n_proc = dist.get_world_size() if grouped else 1
+        else:
+            n_proc = int(n_processes)
+        if n_proc == 1 and self.process_index == 0:
+            return self.encode(local_blocks)
+        lo, hi = multihost_split(n_global, n_proc)[self.process_index]
+        blocks = self._validate_blocks(local_blocks)
+        if blocks.shape[0] != hi - lo:
+            raise ValueError(
+                f"process {self.process_index} must pass blocks [{lo}, {hi}); "
+                f"got {blocks.shape[0]}"
+            )
+        self.encode_shard(blocks, global_start=lo)
+        if grouped:
+            dist.barrier()
+        if self.process_index == 0:
+            return assemble_container(
+                self.cfg,
+                os.path.dirname(self.journal._jpath),
+                n_global,
+                n_proc,
+                distributed=self.distributed,
+                target_bps=self.target_bps,
+                rate_mode=self.rate_mode,
+            )
+        return None
 
     # -- decode -------------------------------------------------------------
 
@@ -146,11 +656,13 @@ class CorpusEncoder:
         """Yield decoded ``[chunk, block_size]`` arrays in container order,
         one chunk of `batch_size` blocks at a time, up to 4 device decodes
         in flight while the host unpacks the next chunk
-        (`hsc_tpu.runtime.CorpusEncoder._decode_chunks`).  A chunk of
+        (`hsc_tpu.runtime.CorpusEncoder._decode_chunks`).  `blocks` may be a
+        lazy iterator of per-block ``[(level, stream)]`` lists.  A chunk of
         top-only blocks is one batched decode; a distributed or mixed chunk
         (at most one stream per level per block, ascending) is one batched
         decode per level, summed on the host per block in level order; any
-        other shape decodes block by block, streams in container order."""
+        other shape decodes block by block through the coder's single-block
+        `reconstruct`, streams in container order."""
         top = cfg.num_levels - 1
         it = iter(blocks)
         # pending: (chunk index, block ids or None for the whole chunk, rows)
@@ -201,10 +713,14 @@ class CorpusEncoder:
                     ids = [b for b, _ in by_level[level]]
                     submit(ci, ids, decode([s for _, s in by_level[level]], level))
             else:
+                # exotic (several streams of one level in one block): the
+                # per-block host loop in stream order, not pipelined
                 out = np.zeros((len(chunk), cfg.block_size), np.float32)
                 for b, streams in enumerate(chunk):
                     for level, stream in streams:
-                        out[b] += decode([stream], level).cpu().numpy()[0, :, 0]
+                        out[b] += self.coder.reconstruct(
+                            stream, level=level, mode=mode, rep_bits=rep_bits
+                        )
                 outs[ci] = out
                 units_left[ci] = 0
             ci += 1
@@ -219,20 +735,131 @@ class CorpusEncoder:
 
     def decode_stream(self, blob: bytes, indices=None):
         """Yield decoded blocks ``[block_size]`` in container order, bounded
-        memory, rows byte-identical to `decode`'s."""
-        if indices is not None:
-            raise _not_ported("decode_stream(indices=...) (random access)", "Runtime and CLI")
-        cfg, _n = peek_corpus_header(blob)
+        memory, rows byte-identical to `decode`'s.  `indices` (optional)
+        streams only those blocks, in the order given: offsets from the
+        seek-index footer when the container carries a current one, else
+        one header scan; only the selected payloads are unpacked."""
+        cfg, n_blocks = peek_corpus_header(blob)
         self._check_geometry(cfg)
-        for chunk in self._decode_chunks(cfg, iter_blocks(blob), cfg.decode_mode, cfg.rep_bits):
+        if indices is not None:
+            indices = [int(i) for i in indices]
+            for i in indices:
+                if not 0 <= i < n_blocks:
+                    raise IndexError(f"block {i} out of range [0, {n_blocks})")
+            offsets = read_index(blob)
+            if offsets is None or offsets.shape[0] != n_blocks + 1:
+                # missing footer, or a stale one (blocks appended and the
+                # header count bumped without re-indexing): degrade to the
+                # header scan, never to a wrong seek
+                _, offsets = scan_block_offsets(blob)
+            blocks = (unpack_block(cfg, blob, int(offsets[i]))[0] for i in indices)
+        else:
+            blocks = iter_blocks(blob)
+        for chunk in self._decode_chunks(cfg, blocks, cfg.decode_mode, cfg.rep_bits):
             yield from chunk
+
+    def decode_blocks(self, blob: bytes, indices) -> np.ndarray:
+        """Random-access decode: only the requested blocks, as
+        ``[len(indices), block_size]`` in the order given, each row
+        byte-identical to the matching row of `decode`."""
+        rows = list(self.decode_stream(blob, indices=list(indices)))
+        if not rows:
+            return np.zeros((0, self.cfg.block_size), dtype=np.float32)
+        return np.stack(rows)
 
     def decode(self, blob: bytes) -> np.ndarray:
         """Decode a container -> ``[n_blocks, block_size]`` float32."""
-        cfg, _n = peek_corpus_header(blob)
+        cfg, n_blocks = peek_corpus_header(blob)
         self._check_geometry(cfg)
+        t0 = time.perf_counter()
         # the stream header's decode arithmetic is authoritative
         parts = list(self._decode_chunks(cfg, iter_blocks(blob), cfg.decode_mode, cfg.rep_bits))
         if not parts:  # empty container (zero blocks)
-            return np.zeros((0, cfg.block_size), dtype=np.float32)
-        return np.concatenate(parts, axis=0) if len(parts) > 1 else parts[0]
+            out = np.zeros((0, cfg.block_size), dtype=np.float32)
+        else:
+            out = np.concatenate(parts, axis=0) if len(parts) > 1 else parts[0]
+        dt = time.perf_counter() - t0
+        self.metrics.log(
+            {
+                "kind": "decode",
+                "blocks": n_blocks,
+                "seconds": dt,
+                "mb_per_s": n_blocks * cfg.block_size * 4 / 1e6 / dt,
+            }
+        )
+        return out
+
+
+class CorpusReader:
+    """Random-access serving handle over a container file.
+
+    Opens the container once (memory-mapped), resolves block offsets once
+    (the seek-index footer when present and current, one header scan
+    otherwise), and serves decoded rows on demand:
+
+        with CorpusReader("corpus.hsct", mld, device="cuda") as reader:
+            row = reader[17]                  # one block, [block_size] float32
+            for row in reader.rows(100, 164): # a range, chunked + pipelined
+                ...
+
+    Rows are byte-identical to `CorpusEncoder.decode`'s.
+    """
+
+    def __init__(
+        self,
+        path: str,
+        mld: MultilevelDictionary,
+        *,
+        device,
+        backend: str = "auto",
+        batch_size: int = 64,
+        mesh=None,
+    ):
+        _refuse_mesh(mesh)
+        self.codec = CorpusEncoder(mld, device=device, backend=backend, batch_size=batch_size)
+        self._file = open(path, "rb")
+        try:
+            self._data = mmap.mmap(self._file.fileno(), 0, access=mmap.ACCESS_READ)
+            self.cfg, self.n_blocks, _ = _parse_corpus_header(self._data)
+            self.codec._check_geometry(self.cfg)
+            offsets = read_index(self._data)
+            if offsets is None or offsets.shape[0] != self.n_blocks + 1:
+                _, offsets = scan_block_offsets(self._data)
+        except BaseException:
+            self.close()
+            raise
+        self._offsets = offsets
+
+    def __len__(self) -> int:
+        return self.n_blocks
+
+    def __getitem__(self, i) -> np.ndarray:
+        if isinstance(i, slice):
+            return np.stack(list(self.rows(*i.indices(self.n_blocks)[:2])))
+        i = int(i)
+        if i < 0:
+            i += self.n_blocks
+        return next(iter(self.rows(i, i + 1)))
+
+    def rows(self, start: int = 0, stop: int | None = None):
+        """Yield decoded rows [start, stop), chunked by the codec's
+        batch_size, device chunks pipelined, bounded memory."""
+        if stop is None:
+            stop = self.n_blocks
+        start, stop, _ = slice(start, stop).indices(self.n_blocks)
+        cfg = self.cfg
+        blocks = (unpack_block(cfg, self._data, int(self._offsets[i]))[0] for i in range(start, stop))
+        for chunk in self.codec._decode_chunks(cfg, blocks, cfg.decode_mode, cfg.rep_bits):
+            yield from chunk
+
+    def close(self) -> None:
+        if getattr(self, "_data", None) is not None:
+            self._data.close()
+            self._data = None
+        self._file.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

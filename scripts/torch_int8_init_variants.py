@@ -43,8 +43,15 @@ def build(src: str, tag: int):
     lib = ctypes.CDLL(lib_path)
     lib.hsc_int8_init.argtypes = _build._SIGNATURES["hsc_int8_init"]
     lib.hsc_int8_init.restype = ctypes.c_int
-    # the wrapper's error check reads the message from the port's library
-    entry = types.SimpleNamespace(hsc_int8_init=lib.hsc_int8_init,
+    # the wrapper's workspace query is the variant's where it has one, and
+    # its error check reads the message from the port's library
+    try:
+        workspace = lib.hsc_int8_init_workspace
+        workspace.argtypes = _build._SIGNATURES["hsc_int8_init_workspace"]
+        workspace.restype = ctypes.c_int
+    except AttributeError:
+        workspace = _build.load().hsc_int8_init_workspace
+    entry = types.SimpleNamespace(hsc_int8_init=lib.hsc_int8_init, hsc_int8_init_workspace=workspace,
                                   hsc_cuda_error_string=_build.load().hsc_cuda_error_string)
     report = [line.strip() for line in (proc.stdout + proc.stderr).splitlines()
               if "registers" in line or "spill" in line or "Function properties" in line]

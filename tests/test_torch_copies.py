@@ -2,9 +2,14 @@
 `.dictionary`, `.signal`, `.oracle`, `.io`, `.utils`) against their
 `hsc_tpu` originals on the CPU, with exact equality: the same configs, the
 same dictionary arrays, signals, container bytes (both entropies, the
-native and the NumPy packer) and oracle outputs on seeded inputs."""
+native and the NumPy packer) and oracle outputs on seeded inputs.  The
+verbatim copies (`io.journal`, `utils.metrics`) are also held to their
+originals' code, statement for statement."""
 
+import ast
 import dataclasses
+import inspect
+import os
 
 import numpy as np
 import pytest
@@ -13,8 +18,10 @@ import hsc_tpu.config
 import hsc_tpu.dictionary
 import hsc_tpu.signal
 import hsc_tpu.utils
+import hsc_tpu.utils.metrics
 from hsc_tpu import oracle as tpu_oracle
 from hsc_tpu.io import bitstream as tpu_bitstream
+from hsc_tpu.io import journal as tpu_journal
 from hsc_tpu.io import native as tpu_native
 from hsc_tpu.oracle import mp as tpu_mp
 
@@ -22,8 +29,10 @@ import hsc_torch.config
 import hsc_torch.dictionary
 import hsc_torch.signal
 import hsc_torch.utils
+import hsc_torch.utils.metrics
 from hsc_torch import oracle as port_oracle
 from hsc_torch.io import bitstream as port_bitstream
+from hsc_torch.io import journal as port_journal
 from hsc_torch.io import native as port_native
 from hsc_torch.oracle import mp as port_mp
 from hsc_torch.params import dictionary_from_arrays
@@ -261,3 +270,68 @@ def test_oracle_hierarchy(levels):
         for level in range(levels):
             assert _same(port_oracle.hierarchical_decode(got[level], port, level=level),
                          tpu_oracle.hierarchical_decode(want[level], tpu, level=level))
+
+
+def _code_without_docstring(module) -> str:
+    """The module's statements after its docstring, as an AST dump."""
+    tree = ast.parse(inspect.getsource(module))
+    body = tree.body[1:] if isinstance(tree.body[0], ast.Expr) else tree.body
+    return ast.dump(ast.Module(body=body, type_ignores=[]))
+
+
+@pytest.mark.parametrize("pair", ["journal", "metrics"])
+def test_verbatim_copies_hold_the_original_code(pair):
+    tpu, port = {
+        "journal": (tpu_journal, port_journal),
+        "metrics": (hsc_tpu.utils.metrics, hsc_torch.utils.metrics),
+    }[pair]
+    assert _code_without_docstring(port) == _code_without_docstring(tpu)
+
+
+def test_journal_files_cross_packages(tmp_path):
+    """A journal written by the port's copy reads back in the original and
+    the other way round: records, the config fingerprint, a torn final
+    line, the read-only probe and CRC checks."""
+    d = str(tmp_path)
+    j = port_journal.EncodeJournal(d, name="corpus", config_json="fp")
+    j.record(3, b"abc")
+    j.record(0, b"defgh")
+    j.record(3, b"ignored")  # re-recording is a no-op
+    j.close()
+    with open(os.path.join(d, "corpus.journal"), "ab") as f:
+        f.write(b"9 0 1 5")  # torn: no newline
+    t = tpu_journal.EncodeJournal(d, name="corpus", config_json="fp")
+    assert t.done_blocks == {0, 3} and t.read(3) == b"abc" and t.assemble(1) == [b"defgh"]
+    t.record(1, b"xy")
+    t.close()
+    p = port_journal.EncodeJournal(d, name="corpus", config_json="fp")
+    assert p.assemble(2) == [b"defgh", b"xy"] and p.read(3) == b"abc"
+    p.close()
+    assert port_journal.EncodeJournal.peek_done_blocks(d) == tpu_journal.EncodeJournal.peek_done_blocks(d) == {0, 1, 3}
+    for mod in (port_journal, tpu_journal):
+        with pytest.raises(ValueError, match="different codec config"):
+            mod.EncodeJournal(d, name="corpus", config_json="other")
+    with open(os.path.join(d, "corpus.blocks"), "r+b") as f:
+        f.write(b"Z")  # corrupts block 3's payload
+    for mod in (port_journal, tpu_journal):
+        jj = mod.EncodeJournal(d, name="corpus")
+        with pytest.raises(IOError, match="corruption"):
+            jj.read(3)
+        jj.close()
+
+
+def test_metrics_logger_lines(tmp_path, monkeypatch):
+    """The same records give the same JSONL lines, and `read_metrics` reads
+    either file."""
+    monkeypatch.setattr(hsc_torch.utils.metrics.time, "time", lambda: 12.5)
+    paths = [str(tmp_path / "port" / "m.jsonl"), str(tmp_path / "tpu" / "m.jsonl")]
+    for mod, path in zip((hsc_torch.utils.metrics, hsc_tpu.utils.metrics), paths):
+        log = mod.MetricsLogger(path)
+        log.log({"kind": "encode_batch", "blocks": 2, "mean_snr_db": None})
+        log.log({"kind": "decode", "ts": 1.0})
+        log.close()
+        mod.MetricsLogger(str(tmp_path / "p1" / "m.jsonl"), process_index=1).log({"kind": "x"})
+    lines = [open(p).read() for p in paths]
+    assert lines[0] == lines[1]
+    assert hsc_torch.utils.metrics.read_metrics(paths[0]) == hsc_tpu.utils.metrics.read_metrics(paths[0])
+    assert not os.path.exists(tmp_path / "p1" / "m.jsonl")

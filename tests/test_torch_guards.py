@@ -19,7 +19,7 @@ from hsc_torch.device import resolve_device
 from hsc_torch.models import HierarchicalConvolutionalSparseCoder
 from hsc_torch.ops import decode_integer_kernel, decode_kernel, init_kernels, mp_kernels
 from hsc_torch.params import dictionary_from_arrays
-from hsc_torch.runtime import CorpusEncoder
+from hsc_torch.runtime import CorpusEncoder, CorpusReader
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -145,23 +145,18 @@ def test_cpu_path_launches_no_kernel(port_mld1, port_mld2):
         assert before == (0, 0, 0, 0)
 
 
-@pytest.mark.parametrize(
-    "what",
-    ["journal_dir", "target_bps", "mesh", "index", "indices"],
-)
+@pytest.mark.parametrize("what", ["mesh", "reader_mesh"])
 def test_unported_options_raise(port_mld1, tmp_path, what):
+    """Meshes are the one unported option: both entry points that take one
+    refuse it, naming the ROADMAP item, before touching a file."""
     mld1 = port_mld1
     cfg = mld1.config
     xs = SignalGenerator(mld1, rates=4e-3).generate_signals(1, cfg.block_size, seed=73)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if what == "journal_dir":
-            CorpusEncoder(mld1, device="cpu", journal_dir=str(tmp_path))
-        elif what == "target_bps":
-            CorpusEncoder(mld1, device="cpu", target_bps=2.0)
-        elif what == "mesh":
-            CorpusEncoder(mld1, device="cpu", mesh=object())
-        elif what == "index":
-            CorpusEncoder(mld1, device="cpu").encode(xs, index=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*Parallel"):
+        if what == "mesh":
+            CorpusEncoder(mld1, device="cpu", mesh=object(), journal_dir=str(tmp_path / "j"))
         else:
-            codec = CorpusEncoder(mld1, device="cpu")
-            next(codec.decode_stream(codec.encode(xs), indices=[0]))
+            path = tmp_path / "c.hsct"
+            path.write_bytes(CorpusEncoder(mld1, device="cpu").encode(xs))
+            CorpusReader(str(path), mld1, device="cpu", mesh=object())
+    assert not (tmp_path / "j").exists()

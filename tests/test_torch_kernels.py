@@ -489,3 +489,69 @@ def test_hier_corpus_encoder_kernels_equal_plain(device, mode):
     plain = CorpusEncoder(mld, device=device, backend="torch", batch_size=4)
     assert plain.encode(xs) == blob
     assert plain.decode(blob).tobytes() == rows.tobytes()
+
+
+@pytest.mark.parametrize("m", [8193, 16384, 20000, 65281])
+def test_sparse_init_kernel_many_events(device, m):
+    """Past the 8192 events per block that the cell kernel once sorted: up
+    to 16384 it sorts in shared memory, past that in a global workspace
+    (65281 is the most `CodecConfig` admits for hier_init='int8' at
+    amp_bits=16).  Dense duplicate cells, events past `count` and off the
+    map: the whole score buffer and the peak bitwise the plain event route,
+    e0 within 1e-6 of it, and block 0 bitwise `oracle.int8_init_scores`."""
+    rng = np.random.default_rng(m)
+    b, n, c, n_raw, w = 2, 700, 9, 7, 21
+    pos = rng.integers(0, n, size=(b, m)).astype(np.int32)
+    atm = rng.integers(0, c, size=(b, m)).astype(np.int32)
+    cds = rng.integers(-32767, 32768, size=(b, m)).astype(np.int32)
+    pos[:, 3], pos[:, 4], atm[:, 5] = -1, n, c  # off the map
+    cnt = np.array([m, m // 3], np.int32)
+    events = [torch.from_numpy(a).to(device) for a in (pos, atm, cds, cnt)]
+    bq, step = bank_quantize_int16(rng.standard_normal((n_raw, w, c)).astype(np.float32))
+    planes = torch.from_numpy(balanced_digits(bq, 2).astype(np.int8)).to(device)
+    prev_scale = torch.from_numpy(rng.uniform(1e-6, 1e-3, size=b).astype(np.float32)).to(device)
+    if device.type == "cuda":
+        from hsc_torch import _build
+
+        # an H100's opt-in shared memory holds the sort of 16384 events (3 x
+        # 16384 ints), not of 32768
+        assert (_build.load().hsc_int8_init_workspace(m) > 0) == (m > 16384)
+    before = init_kernels.LAUNCHES
+    s0, e0, peak = init_kernels.int8_init(*events, prev_scale, planes, step, n_map=n)
+    assert init_kernels.LAUNCHES == before + (device.type == "cuda")
+    s0_p, e0_p, peak_p = int8_init_from_events_torch(*events, prev_scale, planes, step, n_map=n)
+    assert torch.equal(_bits(s0), _bits(s0_p)) and torch.equal(_bits(peak), _bits(peak_p))
+    torch.testing.assert_close(e0, e0_p, rtol=1e-6, atol=0)
+    m_int = feature_map_int(*(torch.from_numpy(a) for a in (pos, atm, cds, cnt)), npos=n, k=c).numpy()
+    want = int8_init_scores(m_int[0], bq, step, prev_scale[0].cpu().numpy())
+    assert s0[0].cpu().numpy().tobytes() == want.tobytes()
+
+
+@pytest.mark.parametrize("c", [2, 7, 64])
+def test_ordered_decode_kernel_channels(device, c):
+    """A bank of C > 1 channels (the level-space decode of a level >= 1):
+    random bank shape, block length and events piled onto few positions,
+    with an empty block, a ragged count and dead events (past the last
+    placement, atoms out of range): the kernel bitwise the plain version,
+    and the live blocks bitwise `oracle.mp.mp_decode`."""
+    rng = np.random.default_rng(5000 + c)
+    b = 4
+    k, w = int(rng.integers(1, 40)), int(rng.integers(1, 80))
+    n, m = int(rng.integers(w, 3000)), int(rng.integers(1, 200))
+    bank = rng.standard_normal((k, w, c)).astype(np.float32)
+    hot = rng.integers(0, n - w + 1, size=int(rng.integers(1, 30)))
+    pos = rng.choice(hot, size=(b, m)).astype(np.int32)
+    atm = rng.integers(0, k, size=(b, m)).astype(np.int32)
+    cds = rng.integers(-32767, 32768, size=(b, m)).astype(np.int32)
+    cnt = np.array([m, 0, rng.integers(0, m + 1), m], np.int32)
+    pos[3, 0], atm[3, m // 2] = n - w + 1, k  # dead events in block 3
+    scale = rng.uniform(1e-7, 1e-2, size=b).astype(np.float32)
+    args = [torch.from_numpy(a).to(device) for a in (pos, atm, cds, cnt, scale, bank)]
+    before = decode_kernel.LAUNCHES
+    got = decode_kernel.mp_decode_batch(*args, n=n)
+    assert decode_kernel.LAUNCHES == before + (device.type == "cuda")
+    assert got.shape == (b, n, c)
+    assert torch.equal(_bits(got), _bits(mp_decode_batch_torch(*args, n=n)))
+    for j in range(3):
+        st = LevelStream(pos[j, :cnt[j]], atm[j, :cnt[j]], cds[j, :cnt[j]], scale[j], 0.0, 0.0)
+        assert got[j].cpu().numpy().tobytes() == mp_decode(st, bank, n).tobytes()
