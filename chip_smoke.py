@@ -48,14 +48,16 @@ level-1 init; dictionary seed 9, signals seed 5) it then:
      events past `count`, at N - W < pos < N and off the map), logging which
      route each took (the cell kernel's sort in shared memory up to 16384
      events, in a global workspace past that) and timing the global route
-     at 20000;
+     at 20000 (also its device time in a CUDA graph, the plain route's
+     time, and the float64 conv1d of that map against the bank codes);
   8. holds the ordered-decode kernel bitwise against its plain version on
      64 top streams and against `oracle.hierarchical_decode` on every block,
      and on phase 4's edge batch against `oracle.mp.mp_decode`; then at
      C = 64 channels (the level-space decode of the level-1 streams against
      level 1's augmented bank) against the plain version, `oracle.mp.mp_decode`
      on 2 blocks and the coder's single-block `reconstruct`, with its device
-     time (a CUDA graph) and bound;
+     time (a CUDA graph), host time per call, plain version's time and
+     bound;
   9. drives the hierarchy end to end on 128 blocks through CorpusEncoder in
      both decode modes and both container forms, counted: repeated encodes
      give identical bytes, level 1 is bitwise the oracle's greedy loop on
@@ -87,10 +89,30 @@ Then:
      rows), `target_bps` containers in both rate modes (equal to
      backend='torch'), all counted, and a journal resume that gives the same
      bytes and launches no kernel.
+ 13. learning and the CLI: (a) `learn.kmeans_refine_device` at
+     `bench.py:291-296`'s geometry (65536 windows of 32, 64 centroids, 20
+     iterations) within 1e-5 of the same call on the CPU, with no host sync
+     inside the loop (torch's sync debug mode counts them, checked against
+     a copy that must count one), timed and profiled; (b) `learn.MultilevelTrainer`
+     at the flagship hierarchy (64 blocks, 4096 windows, 20 iterations),
+     counted, its level-0 encode bitwise the plain loop's, a second run
+     bitwise the first, wall time split into device (profile) and host
+     time, then the learned dictionary through CorpusEncoder; (c)
+     `learn.OnlineConvolutionalDictionaryLearner` on a random unit-norm bank
+     at the flat flagship (64 blocks, 512 coefficients, 5 steps), counted:
+     the loss falls, `_OverlapAdd`'s forward is bitwise the plain decode and
+     its gradient within 1e-4 of autograd through the plain decode in
+     float64, two runs give the same bank bitwise; (d)
+     `analysis.rate_distortion_curve(use_device=True)` on 2 flagship blocks:
+     the oracle's rates, its SNR within 0.15 dB; (e) the CLI in
+     subprocesses with no `--device` (so on the card): `learn` of 2 levels,
+     `encode`, `info`, `decode` and `decode --range 1:3`, rows bitwise an
+     in-process CorpusEncoder's decode, `info` equal to
+     `analysis.corpus_rates`.
 
 Every phase is fatal on failure.  The NumPy spec it checks against is the
 port's own copy (`hsc_torch.oracle`, `hsc_torch.io`); the script fails if
-JAX or any module of the JAX package `hsc_tpu` was imported.  Before the
+JAX, optax, orbax or any module of the JAX package `hsc_tpu` was imported.  Before the
 last line it prints one JSON object with every kernel (launches on the
 counted hierarchical path, error against the plain version, its time as
 phases 6 and 10 time it, its device time, the plain version's, the bound
@@ -189,21 +211,28 @@ def device_profile(fn, trace_path: str) -> dict:
     its chrome trace: host wall ms, device-busy ms (union of kernel, memcpy
     and memset intervals), device ms and launches per kernel name, and device ms per
     `torch.profiler.record_function` range (the kernels, copies and fills
-    launched inside it, matched by their correlation ids)."""
+    launched inside it, matched by their correlation ids).  A trace that
+    holds no device activity at all is taken again, up to twice: on the H100
+    a later profile in a process has come back without its device events."""
     import os
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    os.makedirs(os.path.dirname(trace_path), exist_ok=True)
-    prof.export_chrome_trace(trace_path)
-    with open(trace_path) as f:
-        events = json.load(f).get("traceEvents", [])
+    device_cats = ("kernel", "gpu_memcpy", "gpu_memset")
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        os.makedirs(os.path.dirname(trace_path), exist_ok=True)
+        prof.export_chrome_trace(trace_path)
+        with open(trace_path) as f:
+            events = json.load(f).get("traceEvents", [])
+        if any(e.get("cat") in device_cats for e in events):
+            break
+        log(f"(the profile {os.path.basename(trace_path)} holds no device activity: taken again)")
     ranges = {}
     for e in events:
         if e.get("cat") == "user_annotation" and "dur" in e:
@@ -645,13 +674,24 @@ def hierarchy(dev, card: str):
             many_ms = cuda_ms(lambda: init_kernel(adv_args), 10)
             many_bound = card_bound(4 * (3 * 4 * m_ev + 2 * 4) + mp1.bank_planes.numel() + 4 * (ak.numel() + 2 * 4),
                                     int((adv_map != 0).sum()) * n_raw * w1 * 16)
+            many_dev = graph_ms(lambda: init_kernel(adv_args))
+            many_plain = statistics.median([cuda_ms(lambda: init_plain(adv_args), 1) for _ in range(2)])
+            # the one PyTorch call for its raw rows: a float64 conv1d of the
+            # map against the int16 bank codes (exact below 2^53)
+            m64 = adv_map.double().transpose(1, 2).contiguous()
+            bq64 = (mp1.bank_planes[..., 0].double() + 256.0 * mp1.bank_planes[..., 1].double()).permute(0, 2, 1)
+            bq64 = bq64.contiguous()
+            many_lib = statistics.median([cuda_ms(lambda: F.conv1d(m64, bq64), 1) for _ in range(2)])
+            del m64, bq64
     check(routes[16384] == "shared" and routes[20000] == "global", f"int8 init routes {routes}")
     log(f"[7] int8 init: kernels == plain route bitwise (scores {tuple(s0_1.shape)}, peak; "
         f"e0 within {e0_rel:.3g} relative) on {BATCH} real level-1 batches ({nnz} nonzero cells, "
         f"{nnz / BATCH:.0f} per block) and on adversarial batches of M events per block, sorted in "
         f"{', '.join(f'{m}: {r}' for m, r in routes.items())} memory; == oracle on 2 blocks")
     log(f"[7] int8 init, 4 blocks of 20000 events (global-memory sort), card {card}: {many_ms:.4f} ms per call "
-        f"(CUDA events, 10 calls); bound {many_bound['bound_ms']:.5f} ms by {many_bound['bound_by']}")
+        f"(CUDA events, 10 calls), device {many_dev:.4f} ms (CUDA graph of 20 launches); bound {many_bound['bound_ms']:.5f} ms by "
+        f"{many_bound['bound_by']}; plain route, one call: {many_plain:.3f} ms; float64 conv1d of that map against the "
+        f"bank codes, one call: {many_lib:.3f} ms")
 
     # ---- 8. ordered-decode kernel vs plain version vs oracle --------------
     sc1, iv1 = quantizer_steps(peak_1.cpu().numpy(), cfg.amp_bits)
@@ -697,6 +737,8 @@ def hierarchy(dev, card: str):
           "ConvolutionalSparseCoder.reconstruct != the batched level-space decode")
     od_err = max(od_err, max_abs_diff([got_ls], [ref_ls]))
     ls_dev = statistics.median([graph_ms(level_space_decode) for _ in range(3)])
+    ls_k, ls_p = turns(lambda: cuda_ms(level_space_decode, 20),
+                       lambda: cuda_ms(lambda: mp_decode_batch_torch(*ls_args, n=n_ls), 1), 2)
     ev_ls = int(enc1.count.sum())
     k1, w_ls, c_ls = (int(v) for v in mp1.bank.shape)
     ls_bound = card_bound(12 * ev_ls + 8 * BATCH + 4 * (mp1.bank.numel() + got_ls.numel()), 3 * ev_ls * w_ls * c_ls)
@@ -704,7 +746,8 @@ def hierarchy(dev, card: str):
     log(f"[8] ordered_decode at C = {c_ls} (level space of level 1, bank [{k1}, {w_ls}, {c_ls}], rows "
         f"[{BATCH}, {n_ls}, {c_ls}]): kernel == plain bitwise on {BATCH} blocks, == oracle.mp.mp_decode on 2, "
         f"== the coder's single-block reconstruct; card {card}: device time {ls_dev:.4f} ms (CUDA graph of "
-        f"20 launches, median of 3), bound {ls_bound['bound_ms']:.5f} ms by {ls_bound['bound_by']}")
+        f"20 launches, median of 3), host time per call {stats(ls_k, 'ms')} (20 back-to-back calls), plain "
+        f"{stats(ls_p, 'ms')}; bound {ls_bound['bound_ms']:.5f} ms by {ls_bound['bound_by']}")
 
     # ---- 9. the hierarchy end to end, counted ------------------------------
     mld_o = MultilevelDictionary.generate(dataclasses.replace(cfg, decode_mode="ordered"), seed=9)
@@ -884,12 +927,14 @@ def hierarchy(dev, card: str):
          "launches": launches["sparse_init"],
          "max_abs_err": init_err, "e0_max_rel_err": e0_rel, "ms": statistics.median(in_k),
          "device_ms": init_dev_ms, "plain_ms": statistics.median(in_p), **init_bound, "library_ms": in_lib,
-         "sort_routes": routes, "ms_m20000": many_ms, "bound_ms_m20000": many_bound["bound_ms"]},
+         "sort_routes": routes, "ms_m20000": many_ms, "device_ms_m20000": many_dev, "plain_ms_m20000": many_plain,
+         "bound_ms_m20000": many_bound["bound_ms"], "library_ms_m20000": many_lib},
         {"name": "ordered_decode", "route": "cuda", "source": "hsc_torch/csrc/ordered_decode.cu",
          "replaces": "hsc_tpu/ops/decode_kernel.py:33", "launches": launches["ordered_decode"],
          "max_abs_err": od_err, "ms": statistics.median(od_host), "device_ms": statistics.median(od_dev),
          "plain_ms": statistics.median(od_p), **od_bound, "library_ms": None,
-         "device_ms_c64": ls_dev, "bound_ms_c64": ls_bound["bound_ms"]},
+         "ms_c64": statistics.median(ls_k), "device_ms_c64": ls_dev, "plain_ms_c64": statistics.median(ls_p),
+         "bound_ms_c64": ls_bound["bound_ms"]},
     ]
     return kernels, launches
 
@@ -1051,6 +1096,319 @@ def serving(dev, mld, xs, blob, rows) -> None:
     check(resumed == blob, "journal resume != encode")
     check(not any(launches.values()), f"the journal resume launched kernels: {launches}")
     log(f"[12] journal resume: identical bytes, launches {launches}")
+
+
+# phase 13a: bench.py:291-296's k-means geometry (windows, dims, centroids,
+# iterations)
+KMEANS = (65536, 32, 64, 20)
+
+
+def sync_count(fn):
+    """``(fn(), where)``: `where` lists the file:line of every synchronizing
+    CUDA call `fn` made, as torch's sync debug mode reports them (its
+    warning "called a synchronizing CUDA operation"; the mode's own notice
+    that it is a prototype is not one)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, [f"{w.filename}:{w.lineno}" for w in caught
+                 if "called a synchronizing CUDA operation" in str(w.message)]
+
+
+def kmeans_phase(dev, card) -> dict:
+    """Phase 13a: `kmeans_refine_device` at `bench.py:291-296`'s geometry,
+    against the same call on the CPU, with no host sync in its loop."""
+    import torch
+
+    from hsc_torch.learn import kmeans_refine_device
+
+    m, d, k, iters = KMEANS
+    rng = np.random.default_rng(0)
+    flat = rng.standard_normal((m, d)).astype(np.float32)
+    cents = rng.standard_normal((k, d)).astype(np.float32)
+    cents /= np.linalg.norm(cents, axis=1, keepdims=True)
+    w_d, c_d = torch.from_numpy(flat).to(dev), torch.from_numpy(cents).to(dev)
+    kmeans_refine_device(w_d, c_d, iterations=iters)  # warm
+    torch.cuda.synchronize()
+    (got_c, got_o), syncs = sync_count(lambda: kmeans_refine_device(w_d, c_d, iterations=iters))
+    _, control = sync_count(lambda: got_o.cpu())
+    check(len(control) >= 1, "the sync counter saw no sync in a device-to-host copy")
+    check(not syncs, f"kmeans_refine_device synced the host {len(syncs)} times, at {syncs}")
+    times = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        kmeans_refine_device(w_d, c_d, iterations=iters)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    t0 = time.perf_counter()
+    want_c, want_o = kmeans_refine_device(torch.from_numpy(flat), torch.from_numpy(cents), iterations=iters)
+    cpu_s = time.perf_counter() - t0
+    c_err = float((got_c.cpu() - want_c).abs().max())
+    o_rel = float(((got_o.cpu().double() - want_o.double()) / want_o.double()).abs().max())
+    check(c_err <= 1e-5, f"k-means centroids on the card off the CPU's by {c_err:.3g}")
+    check(o_rel <= 1e-5, f"k-means objectives on the card off the CPU's by {o_rel:.3g} relative")
+    ms = statistics.median(times)
+    rate = m * iters / ms / 1e3
+    log(f"[13] k-means refine, {m} windows x {d}, {k} centroids, {iters} iterations: {len(syncs)} host syncs "
+        f"(torch's sync debug mode; a copy-back counts {len(control)}); centroids within {c_err:.3g} of the CPU's, objectives within "
+        f"{o_rel:.3g} relative; card {card}: {stats(times, 'ms')} (CUDA events, 5 runs) = {rate:.2f} M "
+        f"window-assignments/s; the CPU run took {cpu_s:.2f} s")
+    # device busy against wall: are the iterations' ~25 small ops launch-bound?
+    line, prof = profile_line("k-means refine", lambda: kmeans_refine_device(w_d, c_d, iterations=iters))
+    log("[13] " + line)
+    return {"kmeans_ms": ms, "kmeans_mwindows_s": rate, "kmeans_device_busy_ms": prof["busy_ms"]}
+
+
+def trainer_phase(dev, card) -> tuple[dict, dict]:
+    """Phase 13b: `MultilevelTrainer` at the flagship hierarchy, counted and
+    profiled, its level-0 encode held to the plain loop, then the learned
+    dictionary through CorpusEncoder."""
+    import torch
+
+    from hsc_torch import MultilevelDictionary, SignalGenerator, make_test_config
+    from hsc_torch.learn import MultilevelTrainer
+    from hsc_torch.learn.trainer import _partial_config
+    from hsc_torch.models.coder import ConvolutionalMatchingPursuit
+    from hsc_torch.ops.encode import feature_map
+    from hsc_torch.runtime import CorpusEncoder
+    from hsc_torch.utils import snr_db
+
+    cfg = make_test_config(**HIER)
+    xs = SignalGenerator(MultilevelDictionary.generate(cfg, seed=9), rates=2e-3).generate_signals(
+        BATCH, cfg.block_size, seed=5)
+
+    def train():
+        """One training run -> (dictionary, host seconds per stage, the
+        level hand-off maps)."""
+        trainer = MultilevelTrainer(cfg, num_windows=4096, iterations=20, seed=0, device=dev)
+        spans, maps = {}, {}
+
+        def timed(name, fn):
+            def stage(level, *args):
+                t0 = time.perf_counter()
+                out = fn(level, *args)
+                torch.cuda.synchronize()
+                spans[f"{name} {level}"] = time.perf_counter() - t0
+                if name == "encode":
+                    maps[level] = out
+                return out
+            return stage
+
+        trainer._learn_level = timed("learn", trainer._learn_level)
+        trainer._encode_level = timed("encode", trainer._encode_level)
+        return trainer.train(xs), spans, maps
+
+    with counted() as launches:
+        t0 = time.perf_counter()
+        learned, spans, maps = train()
+        wall = time.perf_counter() - t0
+    check(launches["mp_encode"] > 0, f"the trainer never launched the greedy-loop kernel: {launches}")
+    runs = []
+    _, prof = profile_line("multilevel trainer", lambda: runs.append(train()))
+    again = runs[0][0]
+    check(all(a.tobytes() == b.tobytes() for a, b in zip(learned.dicts, again.dicts)),
+          "two trainer runs gave different dictionaries")
+    for d in learned.dicts:
+        norms = np.linalg.norm(d.reshape(d.shape[0], -1), axis=1)
+        check(np.isfinite(d).all() and np.allclose(norms, 1.0, atol=1e-5), "learned atoms not unit-norm")
+    t_plain = time.perf_counter()
+    mld0 = MultilevelDictionary(_partial_config(cfg, 1), learned.dicts[:1])
+    mp = ConvolutionalMatchingPursuit(mld0.augmented(0), mld0.gram(0), num_coefs=cfg.num_coefs[0],
+                                      amp_bits=cfg.amp_bits, tolerance_snr=cfg.tolerance_snr, n_raw=cfg.counts[0],
+                                      backend="torch", device=dev)
+    plain = feature_map(mp.compute_coefficients_batch(xs), npos=cfg.num_positions(0), k=mld0.num_atoms(0))
+    check(plain.cpu().numpy().tobytes() == maps[0].tobytes(),
+          "the trainer's level-0 hand-off map != the plain loop's (backend='torch')")
+    t_plain = time.perf_counter() - t_plain
+    codec = CorpusEncoder(learned, device=dev)
+    with counted() as codec_launches:
+        blob = codec.encode(xs)
+        rows = codec.decode(blob)
+    check(rows.shape == xs.shape and np.isfinite(rows).all(), "learned dictionary: bad decode output")
+    check(all(v > 0 for k, v in codec_launches.items() if k != "ordered_decode"),
+          f"a kernel of the learned dictionary's codec was never launched: {codec_launches}")
+    snr = float(np.mean([snr_db(xs[b], rows[b]) for b in range(len(xs))]))
+    busy = prof["busy_ms"] / 1e3
+    log(f"[13] MultilevelTrainer, flagship hierarchy ({BATCH} blocks, 4096 windows, 20 iterations): launches "
+        f"{launches}; a second run bitwise the same; level-0 hand-off map ({tuple(maps[0].shape)}) == the plain "
+        f"loop's ({t_plain:.1f} s); card {card}: wall {wall:.3f} s (by stage: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in spans.items())
+        + f"); profiled run: wall {prof['wall_ms'] / 1e3:.3f} s, device busy {busy:.3f} s, host "
+        f"{prof['wall_ms'] / 1e3 - busy:.3f} s")
+    log(f"[13] learned dictionary through CorpusEncoder: {len(xs)} blocks -> {len(blob)} bytes, ratio "
+        f"{xs.nbytes / len(blob):.2f}x, mean SNR {snr:.3f} dB; launches {codec_launches}")
+    return launches, {"trainer_wall_s": wall, "trainer_device_s": busy, "trainer_host_s": prof["wall_ms"] / 1e3 - busy,
+                      "learned_ratio": xs.nbytes / len(blob), "learned_snr_db": snr}
+
+
+def online_phase(dev, card, xs) -> tuple[dict, dict]:
+    """Phase 13c: the online learner at the flat flagship, counted, with
+    `_OverlapAdd` held to the plain decode and to float64 autograd."""
+    import torch
+
+    from hsc_torch import make_test_config
+    from hsc_torch.dictionary import bank_gram
+    from hsc_torch.learn import OnlineConvolutionalDictionaryLearner
+    from hsc_torch.learn.online import _OverlapAdd
+    from hsc_torch.models.coder import ConvolutionalMatchingPursuit
+    from hsc_torch.ops.decode import mp_decode_batch_torch
+
+    cfg = make_test_config(**FLAGSHIP)
+    k, w = cfg.counts[0], cfg.scales[0]
+    bank0 = unit_bank(np.random.default_rng(0), k, w)
+    xb = xs[:BATCH]
+
+    def run():
+        learner = OnlineConvolutionalDictionaryLearner(bank0, num_coefs=cfg.num_coefs[0], amp_bits=cfg.amp_bits,
+                                                       device=dev)
+        step_s = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            learner.step(xb)  # returns the loss as a float: the step has ended
+            step_s.append(time.perf_counter() - t0)
+        return learner, step_s
+
+    with counted() as launches:
+        first, step_s = run()
+    second, _ = run()
+    check(launches["mp_encode"] > 0 and launches["ordered_decode"] > 0,
+          f"the online learner did not launch both kernels: {launches}")
+    losses = first.loss_history
+    check(losses[-1] < losses[0], f"the online loss did not fall: {losses}")
+    check(bits_equal(first.bank.detach(), second.bank.detach()), "two online runs gave different banks")
+    # the first step's events, through _OverlapAdd and the plain decode
+    mp = ConvolutionalMatchingPursuit(bank0, bank_gram(bank0), num_coefs=cfg.num_coefs[0], amp_bits=cfg.amp_bits,
+                                      device=dev)
+    enc = mp.compute_coefficients_batch(xb)
+    ev = (enc.positions, enc.atoms, enc.codes, enc.count, enc.scale)
+    n = cfg.block_size
+    bank = torch.from_numpy(bank0).to(dev).requires_grad_(True)
+    x_t = torch.from_numpy(xb[:, :, None]).to(dev)
+    recon = _OverlapAdd.apply(bank, *ev, n)
+    check(bits_equal(recon.detach(), mp_decode_batch_torch(*ev, bank.detach(), n=n)),
+          "_OverlapAdd forward != the plain ordered decode")
+    (grad,) = torch.autograd.grad((x_t - recon).square().sum(), bank)
+    b64 = bank.detach().double().requires_grad_(True)
+    (want,) = torch.autograd.grad((x_t.double() - mp_decode_batch_torch(*ev, b64, n=n)).square().sum(), b64)
+    g_err = float((grad.double() - want).abs().max() / want.abs().max())
+    check(g_err <= 1e-4, f"_OverlapAdd gradient off float64 autograd by {g_err:.3g} of its largest entry")
+    step_ms = 1e3 * statistics.median(step_s)
+    log(f"[13] online learner, flat flagship ({BATCH} blocks, bank [{k}, {w}, 1], {cfg.num_coefs[0]} coefs, 5 steps): "
+        f"launches {launches}; loss {losses[0]:.6g} -> {losses[-1]:.6g}; two runs bitwise the same bank; "
+        f"_OverlapAdd forward == plain decode bitwise, gradient within {g_err:.3g} (of its largest entry) of "
+        f"float64 autograd; card {card}: {stats([1e3 * v for v in step_s], 'ms', '.2f')} per step (host wall)")
+    return launches, {"online_step_ms": step_ms, "online_grad_rel_err": g_err}
+
+
+def rate_curve_phase(dev, mld, xs) -> dict:
+    """Phase 13d: `rate_distortion_curve(use_device=True)` against the
+    oracle's curve on 2 flagship blocks."""
+    from hsc_torch.analysis import rate_distortion_curve
+
+    budgets = [8, 32, 64]
+    with counted() as launches:
+        device = rate_distortion_curve(mld, xs[:2], budgets, use_device=True, device=dev)
+    oracle = rate_distortion_curve(mld, xs[:2], budgets, use_device=False)
+    check(launches["mp_encode"] > 0 and launches["ordered_decode"] > 0,
+          f"the rate curve did not launch both kernels: {launches}")
+    for (ro, so), (rd, sd) in zip(oracle, device):
+        check(ro == rd, f"rate curve on the card: rate {rd} != the oracle's {ro}")
+        check(abs(so - sd) < 0.15, f"rate curve on the card: SNR {sd} dB, the oracle's {so} dB")
+    log(f"[13] rate_distortion_curve(use_device=True), 2 flagship blocks, budgets {budgets}: launches {launches}; "
+        f"rates == oracle, SNR within 0.15 dB: " + ", ".join(f"{r:.4f} b/s {s:.3f} dB (oracle {so:.3f})"
+                                                             for (r, s), (_, so) in zip(device, oracle)))
+    return launches
+
+
+def cli_phase(dev) -> None:
+    """Phase 13e: the CLI in subprocesses with no --device, on a small
+    corpus of the flagship hierarchy; the in-process decode it is held to
+    runs on `dev`."""
+    import os
+    import shutil
+
+    from hsc_torch import MultilevelDictionary, SignalGenerator, make_test_config
+    from hsc_torch.analysis import corpus_rates
+    from hsc_torch.io import iter_blocks, peek_corpus_header
+    from hsc_torch.runtime import CorpusEncoder
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "chip_smoke", "cli")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cfg = make_test_config(**HIER)
+    xs = SignalGenerator(MultilevelDictionary.generate(cfg, seed=9), rates=2e-3).generate_signals(
+        8, cfg.block_size, seed=5)
+    path = {name: os.path.join(work, name) for name in ("sig.npy", "d.npz", "c.hsct", "rows.npy", "r13.npy")}
+    np.save(path["sig.npy"], xs.reshape(-1))
+
+    def cli(*args):
+        return subprocess.Popen([sys.executable, "-m", "hsc_torch.cli", *args], cwd=root, text=True,
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+    def finish(proc, what):
+        out, err = proc.communicate(timeout=300)
+        check(proc.returncode == 0, f"hsc_torch.cli {what} failed ({proc.returncode}): {err[-2000:]}")
+        return out
+
+    t0 = time.perf_counter()
+    finish(cli("learn", "--input", path["sig.npy"], "--output", path["d.npz"],
+               "--counts", ",".join(map(str, cfg.counts)), "--scales", ",".join(map(str, cfg.scales)),
+               "--block-size", str(cfg.block_size), "--learn-coefs", ",".join(map(str, cfg.num_coefs)),
+               "--num-select", str(cfg.num_select), "--num-windows", "512", "--iterations", "5"), "learn")
+    t_learn = time.perf_counter() - t0
+    finish(cli("encode", "--dict", path["d.npz"], "--input", path["sig.npy"], "--output", path["c.hsct"]), "encode")
+    procs = {"info": cli("info", "--input", path["c.hsct"]),
+             "decode": cli("decode", "--dict", path["d.npz"], "--input", path["c.hsct"], "--output", path["rows.npy"]),
+             "decode --range": cli("decode", "--dict", path["d.npz"], "--input", path["c.hsct"],
+                                   "--output", path["r13.npy"], "--range", "1:3")}
+    outs = {what: finish(proc, what) for what, proc in procs.items()}
+    wall = time.perf_counter() - t0
+    mld = MultilevelDictionary.load(path["d.npz"])
+    check(mld.config.counts == cfg.counts and mld.config.num_select == cfg.num_select, "learned config differs")
+    with open(path["c.hsct"], "rb") as f:
+        blob = f.read()
+    rows = np.load(path["rows.npy"])
+    check(rows.tobytes() == CorpusEncoder(mld, device=dev).decode(blob).tobytes(),
+          f"CLI decode rows != an in-process CorpusEncoder(device={str(dev)!r}).decode")
+    check(np.load(path["r13.npy"]).tobytes() == rows[1:3].tobytes(), "CLI decode --range 1:3 != rows[1:3]")
+    doc = json.loads(outs["info"])
+    rates = corpus_rates(peek_corpus_header(blob)[0], iter_blocks(blob))
+    rates["per_level_payload_bits"] = {str(k): v for k, v in rates["per_level_payload_bits"].items()}
+    check(doc["blocks"] == len(xs) and doc["file_bytes"] == len(blob)
+          and all(doc[k] == v for k, v in rates.items()), "CLI info != analysis.corpus_rates of the container")
+    log(f"[13] CLI (python -m hsc_torch.cli, no --device): learn of 2 levels ({t_learn:.1f} s), encode, then info, "
+        f"decode and decode --range 1:3 in parallel, {wall:.1f} s in all; {len(xs)} blocks -> {len(blob)} bytes "
+        f"(ratio {doc['compression_ratio']:.2f}); rows == in-process CorpusEncoder decode bitwise, range rows == "
+        f"rows[1:3], info == analysis.corpus_rates")
+
+
+def learning(dev, card, mld, xs) -> dict:
+    """Phase 13: learning and the CLI on the card.  Returns the numbers it
+    measured and the launches of the in-process learning paths (trainer,
+    online learner, rate curve), counted each on its own."""
+    t0 = time.perf_counter()
+    out = kmeans_phase(dev, card)
+    trainer_launches, numbers = trainer_phase(dev, card)
+    out.update(numbers)
+    online_launches, numbers = online_phase(dev, card, xs)
+    out.update(numbers)
+    curve_launches = rate_curve_phase(dev, mld, xs)
+    cli_phase(dev)
+    out["launches"] = {k: trainer_launches[k] + online_launches[k] + curve_launches[k] for k in trainer_launches}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[13] learning and the CLI took {out['seconds']:.1f} s; launches on the learning paths {out['launches']}")
+    return out
 
 
 def main() -> int:
@@ -1271,9 +1629,10 @@ def main() -> int:
     large_block(dev)
     deep_level0(dev)
     serving(dev, mld, xs, blob, decoded)
+    learned = learning(dev, card, mld, xs)
 
-    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "hsc_tpu"))
-    check(not loaded, f"JAX or the JAX package was imported: {loaded}")
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "hsc_tpu", "optax", "orbax"))
+    check(not loaded, f"JAX, optax, orbax or the JAX package was imported: {loaded}")
     # no single PyTorch call computes the greedy loop or either decode's
     # event walk, so their library_ms is null
     kernels = [
@@ -1287,6 +1646,8 @@ def main() -> int:
          "library_ms": None},
         *hier_kernels,
     ]
+    for row in kernels:  # phase 13's counts, beside the main path's
+        row["launches_learning"] = learned["launches"][row["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

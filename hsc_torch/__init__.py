@@ -17,6 +17,15 @@ for an NVIDIA Hopper card and mirrors its layout and names:
                   seek index and random-access decode, constant bitrate,
                   the resume journal and multi-process shards; CorpusReader
                   serves rows of a container file
+  learn         — dictionary learning: spherical k-means on the device
+                  (`kmeans`), the multilevel trainer and its resume journal
+                  (`trainer`), the online learner, whose overlap-add is the
+                  ordered-decode kernel with a hand-written gradient
+                  (`online`), and npz checkpoints (`checkpoint`)
+  analysis      — rate accounting, rate-distortion curves and per-level
+                  diagnostics
+  cli           — the command-line codec (`python -m hsc_torch.cli`,
+                  `hsc-torch-codec`): encode, decode, info, learn, assemble
 
 The port keeps its own copies of the JAX package's NumPy modules, verbatim:
 `config`, `dictionary`, `signal`, `oracle` (the NumPy spec), `io` (the

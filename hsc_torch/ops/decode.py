@@ -52,17 +52,19 @@ def mp_decode_batch_torch(
     rounded torch op (no `addcmul`, no `alpha=`): the products are formed
     first, then added to the output one event at a time.  A dead event adds
     ``+0.0`` at position 0, which changes nothing: a sum that starts at
-    ``+0.0`` is never ``-0.0``."""
+    ``+0.0`` is never ``-0.0``.  A float64 `bank` gives the same sums in
+    float64 (``code * scale`` is exact there), and autograd runs through it:
+    the reference for the online learner's gradient."""
     b, m = positions.shape
     k, w, c = bank.shape
     dev = positions.device
     live = _live_events(positions, atoms, count, n=n, k=k, w=w)
-    c_hat = codes.to(torch.float32) * scale[:, None]  # rn(code * scale)
+    c_hat = codes.to(bank.dtype) * scale[:, None].to(bank.dtype)  # rn(code * scale)
     atm = torch.where(live, atoms.long(), 0)
     prods = torch.where(live[:, :, None, None], c_hat[:, :, None, None] * bank[atm], 0.0)
     cols = torch.where(live, positions.long(), 0)[:, :, None] + torch.arange(w, device=dev)
     rows = torch.arange(b, device=dev)[:, None]
-    out = torch.zeros((b, n, c), dtype=torch.float32, device=dev)
+    out = torch.zeros((b, n, c), dtype=bank.dtype, device=dev)
     for i in range(m):
         at = (rows, cols[:, i])
         out[at] = out[at] + prods[:, i]

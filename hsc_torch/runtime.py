@@ -35,6 +35,7 @@ from itertools import islice
 import numpy as np
 
 from .config import CodecConfig
+from .device import refuse_mesh
 from .dictionary import MultilevelDictionary
 from .io.bitstream import (
     MAGIC,
@@ -53,15 +54,6 @@ from .models.coder import HierarchicalConvolutionalSparseCoder, level_streams, t
 from .ops.pipeline import encode_batches_pipelined, encode_hierarchical_batches_pipelined
 from .oracle.mp import LevelStream, to_distributed
 from .utils.metrics import MetricsLogger
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1, {item!r})")
-
-
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise _not_ported("mesh (data-parallel encode/decode)", "Parallel")
 
 
 def _journal_name(process_index: int) -> str:
@@ -396,7 +388,7 @@ class CorpusEncoder:
         target_bps: float | None = None,
         rate_mode: str = "block",
     ):
-        _refuse_mesh(mesh)
+        refuse_mesh(mesh, "mesh (data-parallel encode/decode)")
         self.mld = mld
         self.cfg: CodecConfig = mld.config
         self.coder = HierarchicalConvolutionalSparseCoder(mld, backend=backend, device=device)
@@ -815,7 +807,7 @@ class CorpusReader:
         batch_size: int = 64,
         mesh=None,
     ):
-        _refuse_mesh(mesh)
+        refuse_mesh(mesh, "mesh (data-parallel encode/decode)")
         self.codec = CorpusEncoder(mld, device=device, backend=backend, batch_size=batch_size)
         self._file = open(path, "rb")
         try:

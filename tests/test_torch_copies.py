@@ -1,9 +1,11 @@
 """The port's own copies of the JAX package's NumPy modules (`hsc_torch.config`,
-`.dictionary`, `.signal`, `.oracle`, `.io`, `.utils`) against their
-`hsc_tpu` originals on the CPU, with exact equality: the same configs, the
-same dictionary arrays, signals, container bytes (both entropies, the
-native and the NumPy packer) and oracle outputs on seeded inputs.  The
-verbatim copies (`io.journal`, `utils.metrics`) are also held to their
+`.dictionary`, `.signal`, `.oracle`, `.io`, `.utils`, `.analysis`) against
+their `hsc_tpu` originals on the CPU, with exact equality: the same configs,
+the same dictionary arrays, signals, synthesized audio and WAV files,
+container bytes (both entropies, the native and the NumPy packer) and
+oracle outputs on seeded inputs.  The verbatim copies (`signal`,
+`io.journal`, `utils.metrics`, `analysis.diagnostics`, and
+`analysis.rates` but for `rate_distortion_curve`) are also held to their
 originals' code, statement for statement."""
 
 import ast
@@ -14,6 +16,8 @@ import os
 import numpy as np
 import pytest
 
+import hsc_tpu.analysis.diagnostics
+import hsc_tpu.analysis.rates
 import hsc_tpu.config
 import hsc_tpu.dictionary
 import hsc_tpu.signal
@@ -25,6 +29,8 @@ from hsc_tpu.io import journal as tpu_journal
 from hsc_tpu.io import native as tpu_native
 from hsc_tpu.oracle import mp as tpu_mp
 
+import hsc_torch.analysis.diagnostics
+import hsc_torch.analysis.rates
 import hsc_torch.config
 import hsc_torch.dictionary
 import hsc_torch.signal
@@ -272,20 +278,55 @@ def test_oracle_hierarchy(levels):
                          tpu_oracle.hierarchical_decode(want[level], tpu, level=level))
 
 
-def _code_without_docstring(module) -> str:
-    """The module's statements after its docstring, as an AST dump."""
+def _code_without_docstring(module, skip=()) -> str:
+    """The module's statements after its docstring, but for the top-level
+    functions named in `skip`, as an AST dump."""
     tree = ast.parse(inspect.getsource(module))
     body = tree.body[1:] if isinstance(tree.body[0], ast.Expr) else tree.body
+    body = [n for n in body if not (isinstance(n, ast.FunctionDef) and n.name in skip)]
     return ast.dump(ast.Module(body=body, type_ignores=[]))
 
 
-@pytest.mark.parametrize("pair", ["journal", "metrics"])
+@pytest.mark.parametrize("pair", ["journal", "metrics", "signal", "diagnostics"])
 def test_verbatim_copies_hold_the_original_code(pair):
     tpu, port = {
         "journal": (tpu_journal, port_journal),
         "metrics": (hsc_tpu.utils.metrics, hsc_torch.utils.metrics),
+        "signal": (hsc_tpu.signal, hsc_torch.signal),
+        "diagnostics": (hsc_tpu.analysis.diagnostics, hsc_torch.analysis.diagnostics),
     }[pair]
     assert _code_without_docstring(port) == _code_without_docstring(tpu)
+
+
+def test_rates_copy_holds_the_original_code_but_the_device_curve():
+    """`analysis.rates` is the original statement for statement but for
+    `rate_distortion_curve`, whose `use_device` branch runs the port's coder
+    and decode; the function keeps the original's parameters and adds
+    `device`."""
+    tpu, port = hsc_tpu.analysis.rates, hsc_torch.analysis.rates
+    skip = ("rate_distortion_curve",)
+    assert _code_without_docstring(port, skip) == _code_without_docstring(tpu, skip)
+    p = inspect.signature(port.rate_distortion_curve).parameters
+    t = inspect.signature(tpu.rate_distortion_curve).parameters
+    assert list(p) == [*t, "device"] and all(p[k].default == t[k].default for k in t)
+
+
+def test_audio_synthesis_and_wav_files(tmp_path):
+    """The synthesizers give the same samples, and a WAV written by either
+    copy reads back the same in both."""
+    for name in ("synthesize_music", "synthesize_speech"):
+        for seed in (0, 3):
+            assert _same(getattr(hsc_torch.signal, name)(6000, seed=seed),
+                         getattr(hsc_tpu.signal, name)(6000, seed=seed)), (name, seed)
+    x = hsc_tpu.signal.synthesize_music(3000, rate=8000, seed=1) * 1.7
+    paths = [str(tmp_path / "port.wav"), str(tmp_path / "tpu.wav")]
+    hsc_torch.signal.save_wav(paths[0], x, rate=8000)
+    hsc_tpu.signal.save_wav(paths[1], x, rate=8000)
+    assert open(paths[0], "rb").read() == open(paths[1], "rb").read()
+    for norm in (True, False):
+        got = hsc_torch.signal.load_wav_blocks(paths[0], 1024, normalize_peak=norm)
+        assert got.shape == (3, 1024)
+        assert _same(got, hsc_tpu.signal.load_wav_blocks(paths[0], 1024, normalize_peak=norm))
 
 
 def test_journal_files_cross_packages(tmp_path):

@@ -14,8 +14,10 @@ import pytest
 import torch
 
 import hsc_torch._build
+import hsc_torch.cli
 from hsc_torch import MultilevelDictionary, SignalGenerator, make_test_config
 from hsc_torch.device import resolve_device
+from hsc_torch.learn import ConvolutionalDictionaryLearner, MultilevelTrainer, OnlineConvolutionalDictionaryLearner
 from hsc_torch.models import HierarchicalConvolutionalSparseCoder
 from hsc_torch.ops import decode_integer_kernel, decode_kernel, init_kernels, mp_kernels
 from hsc_torch.params import dictionary_from_arrays
@@ -36,12 +38,15 @@ def port_mld2(mld2):
 
 def test_port_never_imports_jax():
     """A fresh interpreter imports the port and runs tiny CPU encodes and
-    decodes (one level; two levels, ordered, distributed) without JAX or any
-    module of the JAX package `hsc_tpu` ever entering sys.modules."""
+    decodes (one level; two levels, ordered, distributed) and a two-level
+    `learn` through the CLI without JAX, optax, orbax or any module of the
+    JAX package `hsc_tpu` ever entering sys.modules."""
     code = textwrap.dedent(
         """
-        import sys
-        import hsc_torch, hsc_torch.models, hsc_torch.runtime
+        import os, sys, tempfile
+        import numpy as np
+        import hsc_torch, hsc_torch.models, hsc_torch.runtime, hsc_torch.analysis, hsc_torch.learn
+        import hsc_torch.cli
         from hsc_torch import CorpusEncoder, MultilevelDictionary, SignalGenerator, make_test_config
         cfg = make_test_config(block_size=256, num_coefs=(16,), counts=(8,), scales=(8,))
         mld = MultilevelDictionary.generate(cfg, seed=1)
@@ -54,8 +59,15 @@ def test_port_never_imports_jax():
         codec2 = CorpusEncoder(MultilevelDictionary.generate(cfg2, seed=1), device="cpu",
                                distributed=True)
         assert codec2.decode(codec2.encode(xs)).shape == (2, 256)
+        d = tempfile.mkdtemp()
+        np.save(os.path.join(d, "x.npy"), xs.reshape(-1))
+        hsc_torch.cli.main(["learn", "--input", os.path.join(d, "x.npy"), "--output", os.path.join(d, "l.npz"),
+                            "--counts", "6,4", "--scales", "8,24", "--block-size", "256",
+                            "--learn-coefs", "16,8", "--num-windows", "64", "--iterations", "2",
+                            "--device", "cpu"])
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
-        loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "hsc_tpu"))
+        loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "hsc_tpu", "optax", "orbax"))
         assert not loaded, loaded
         print("ok")
         """
@@ -89,8 +101,9 @@ def _imported_roots(path):
 ) + ["chip_smoke.py"])
 def test_no_jax_package_import_in_source(path):
     """No file of the port and no line of chip_smoke.py imports `hsc_tpu`,
-    `jax` or `jaxlib`, at module level or inside a function."""
-    assert not _imported_roots(os.path.join(REPO, path)) & {"hsc_tpu", "jax", "jaxlib"}
+    `jax`, `jaxlib`, `optax` or `orbax`, at module level or inside a
+    function."""
+    assert not _imported_roots(os.path.join(REPO, path)) & {"hsc_tpu", "jax", "jaxlib", "optax", "orbax"}
 
 
 def test_jax_package_dictionary_is_refused(mld1, port_mld1):
@@ -145,18 +158,33 @@ def test_cpu_path_launches_no_kernel(port_mld1, port_mld2):
         assert before == (0, 0, 0, 0)
 
 
-@pytest.mark.parametrize("what", ["mesh", "reader_mesh"])
+@pytest.mark.parametrize("what", ["mesh", "reader_mesh", "learner_mesh", "trainer_mesh", "online_mesh",
+                                  "cli_mesh"])
 def test_unported_options_raise(port_mld1, tmp_path, what):
-    """Meshes are the one unported option: both entry points that take one
-    refuse it, naming the ROADMAP item, before touching a file."""
+    """Meshes are the one unported option: every entry point that takes one
+    refuses it, naming the ROADMAP item, before touching a file or the
+    device (the CLI exits with the same text)."""
     mld1 = port_mld1
     cfg = mld1.config
     xs = SignalGenerator(mld1, rates=4e-3).generate_signals(1, cfg.block_size, seed=73)
+    if what == "cli_mesh":
+        mld1.save(str(tmp_path / "d.npz"))
+        with pytest.raises(SystemExit, match="ROADMAP.*Parallel"):
+            hsc_torch.cli.main(["encode", "--dict", str(tmp_path / "d.npz"), "--input", "x.npy",
+                                "--output", str(tmp_path / "j"), "--mesh", "2", "--device", "cpu"])
+        assert not (tmp_path / "j").exists()
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.*Parallel"):
         if what == "mesh":
             CorpusEncoder(mld1, device="cpu", mesh=object(), journal_dir=str(tmp_path / "j"))
-        else:
+        elif what == "reader_mesh":
             path = tmp_path / "c.hsct"
             path.write_bytes(CorpusEncoder(mld1, device="cpu").encode(xs))
             CorpusReader(str(path), mld1, device="cpu", mesh=object())
+        elif what == "learner_mesh":
+            ConvolutionalDictionaryLearner(4, 8, device="cpu").train(xs, mesh=object())
+        elif what == "trainer_mesh":
+            MultilevelTrainer(cfg, checkpoint_dir=str(tmp_path / "j"), mesh=object(), device="cpu")
+        else:
+            OnlineConvolutionalDictionaryLearner(mld1.dicts[0], mesh=object(), device="cpu")
     assert not (tmp_path / "j").exists()

@@ -555,3 +555,91 @@ def test_ordered_decode_kernel_channels(device, c):
     for j in range(3):
         st = LevelStream(pos[j, :cnt[j]], atm[j, :cnt[j]], cds[j, :cnt[j]], scale[j], 0.0, 0.0)
         assert got[j].cpu().numpy().tobytes() == mp_decode(st, bank, n).tobytes()
+
+
+def test_overlap_add_on_device(device):
+    """The online learner's `_OverlapAdd`: its forward is the ordered decode
+    (the kernel on the card, one launch) bitwise the plain version, and its
+    backward gives the same bank gradient bitwise in two calls, within
+    float32 rounding (1e-5) of the CPU's."""
+    from hsc_torch.learn.online import _OverlapAdd
+
+    rng = np.random.default_rng(61)
+    b, m, k, w, n = 4, 300, 9, 24, 2000
+    pos = rng.integers(0, n - w + 1, (b, m)).astype(np.int32)
+    pos[0, :40] = 77
+    atm = rng.integers(0, k, (b, m)).astype(np.int32)
+    cds = rng.integers(-32767, 32768, (b, m)).astype(np.int32)
+    cnt = np.array([m, 0, m // 3, m], np.int32)
+    scale = rng.uniform(1e-6, 1e-3, b).astype(np.float32)
+    bank_np = rng.standard_normal((k, w, 1)).astype(np.float32)
+    g_np = rng.standard_normal((b, n, 1)).astype(np.float32)
+    events = [torch.from_numpy(a).to(device) for a in (pos, atm, cds, cnt, scale)]
+    bank = torch.from_numpy(bank_np).to(device).requires_grad_(True)
+    g = torch.from_numpy(g_np).to(device)
+    before = decode_kernel.LAUNCHES
+    out = _OverlapAdd.apply(bank, *events, n)
+    assert decode_kernel.LAUNCHES == before + (device.type == "cuda")
+    assert torch.equal(_bits(out.detach()), _bits(mp_decode_batch_torch(*events, bank.detach(), n=n)))
+    grads = [torch.autograd.grad(_OverlapAdd.apply(bank, *events, n), bank, g)[0] for _ in range(2)]
+    assert torch.equal(_bits(grads[0]), _bits(grads[1]))
+    cpu_bank = torch.from_numpy(bank_np).requires_grad_(True)
+    (want,) = torch.autograd.grad(
+        _OverlapAdd.apply(cpu_bank, *(t.cpu() for t in events), n), cpu_bank, torch.from_numpy(g_np))
+    torch.testing.assert_close(grads[0].cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("fixture", ["reseed", "planted"])
+def test_kmeans_refine_on_device(device, fixture):
+    """`kmeans_refine_device` on the device within 1e-5 of the CPU's
+    centroids and 1e-5 relative of its objectives: a silent window and a
+    centroid that dies at once, and windows planted around 12 atoms."""
+    from hsc_torch.learn import kmeans_refine_device
+
+    rng = np.random.default_rng(4)
+    if fixture == "reseed":
+        flat = rng.standard_normal((256, 16)).astype(np.float32)
+        flat[17] = 0
+        cents0 = rng.standard_normal((6, 16)).astype(np.float32)
+        cents0[3] = 0
+    else:
+        atoms = rng.standard_normal((12, 40)).astype(np.float32)
+        flat = (atoms[rng.integers(0, 12, 3000)] * rng.choice([-1.0, 1.0], (3000, 1))
+                + 0.05 * rng.standard_normal((3000, 40))).astype(np.float32)
+        cents0 = flat[:12].copy()
+    cents0 /= np.maximum(np.linalg.norm(cents0, axis=1, keepdims=True), 1e-8)
+    got_c, got_o = kmeans_refine_device(torch.from_numpy(flat).to(device), torch.from_numpy(cents0).to(device),
+                                        iterations=8)
+    assert got_c.device.type == device.type and got_o.shape == (8,)
+    want_c, want_o = kmeans_refine_device(torch.from_numpy(flat), torch.from_numpy(cents0), iterations=8)
+    torch.testing.assert_close(got_c.cpu(), want_c, rtol=0, atol=1e-5)
+    torch.testing.assert_close(got_o.cpu(), want_o, rtol=1e-5, atol=0)
+
+
+def test_online_step_on_device(device, monkeypatch):
+    """`OnlineConvolutionalDictionaryLearner.step` on the device within 1e-4
+    of the CPU's loss (relative) and bank.  The level-0 init of both is
+    computed on the CPU, so both encode the same events (the loop is
+    bitwise given its init); the rest — the loop, the kernel forward, the
+    gradient product, Adam — runs on the device."""
+    import hsc_torch.models.coder
+    from hsc_torch.learn import OnlineConvolutionalDictionaryLearner
+
+    def cpu_init(xb, bank):
+        return tuple(t.to(xb.device) for t in encode_init_batched(xb.cpu(), bank.cpu()))
+
+    monkeypatch.setattr(hsc_torch.models.coder, "encode_init_batched", cpu_init)
+    cfg = make_test_config(counts=(8,), scales=(12,), num_coefs=(48,), block_size=512)
+    mld = MultilevelDictionary.generate(cfg, seed=3)
+    xs = SignalGenerator(mld, rates=2e-2, amplitude_range=(0.8, 1.2)).generate_signals(8, 512, seed=11)
+    bank0 = np.random.default_rng(0).standard_normal((8, 12, 1)).astype(np.float32)
+    bank0 /= np.linalg.norm(bank0.reshape(8, -1), axis=1)[:, None, None]
+    learners = [OnlineConvolutionalDictionaryLearner(bank0, num_coefs=48, learning_rate=1e-2, device=dev)
+                for dev in (device, "cpu")]
+    for _ in range(2):
+        before = mp_kernels.LAUNCHES, decode_kernel.LAUNCHES
+        got, want = (lr.step(xs) for lr in learners)
+        if device.type == "cuda":
+            assert mp_kernels.LAUNCHES > before[0] and decode_kernel.LAUNCHES > before[1]
+        assert abs(got - want) <= 1e-4 * abs(want)
+        torch.testing.assert_close(learners[0].bank.detach().cpu(), learners[1].bank.detach(), rtol=0, atol=1e-4)
