@@ -109,6 +109,29 @@ Then:
      `encode`, `info`, `decode` and `decode --range 1:3`, rows bitwise an
      in-process CorpusEncoder's decode, `info` equal to
      `analysis.corpus_rates`.
+ 14. the parallel layer on meshes of 4 shards of the one card
+     (`hsc_torch.parallel`): (a) the level-0 init of 64 flagship blocks
+     bitwise the same at batch 64, 32, 17 and 1; CorpusEncoder(mesh=...) at
+     batch_size 32 on phase 5's 128 blocks, counted, its container equal to
+     the local batch-32 and phase 5's batch-64 containers, its rows to
+     phase 5's, a ragged corpus of 101 blocks equal to the local path, and
+     encode and decode timed in turns with the local path; (b) the
+     hierarchical DP codec at the flagship hierarchy, with hier_init='f32'
+     and at 3 levels (counts 64, 32, 16; scales 32, 96, 288), containers
+     equal to the local path and backend='torch', the top streams through
+     `DataParallelDecoder` in both modes bitwise the local and plain
+     decodes; (c) SP on one 65536-sample block of phase 11's config on
+     {'seq': 4} and (d) TP on one flat-flagship block on {'model': 4}:
+     given the local init, bitwise the local kernel loop at num_select 1
+     and 8 and at an SNR stop, timed per block; with their own init, the
+     init within 1e-5 of the peak of the local one and the stream equal to
+     the local one or its first differing event named; (e) distributed
+     k-means at phase 13a's geometry, timed, bitwise run to run, every atom
+     within |cos| > 0.99 of the local loop's, and the online learner on the
+     mesh (64 blocks, 5 steps), counted, bitwise run to run, its first step
+     within 1e-4 (loss) and 1e-5 (bank) of the local learner's; (f) the CLI
+     `encode --mesh 1 --device cuda` equal to no mesh, and `--mesh N` past
+     the visible cards exits naming them.
 
 Every phase is fatal on failure.  The NumPy spec it checks against is the
 port's own copy (`hsc_torch.oracle`, `hsc_torch.io`); the script fails if
@@ -117,7 +140,8 @@ last line it prints one JSON object with every kernel (launches on the
 counted hierarchical path, error against the plain version, its time as
 phases 6 and 10 time it, its device time, the plain version's, the bound
 computed from this run's inputs and, where one PyTorch call computes the
-same function, that call's time), then the
+same function, that call's time; `launches_learning` and `launches_mesh`
+count phases 13 and 14), then the
 card's name and power limit.  The last line is one JSON object with the
 device.
 """
@@ -1411,12 +1435,348 @@ def learning(dev, card, mld, xs) -> dict:
     return out
 
 
+# phase 14: every mesh is 4 shards of the first card
+MESH_SHARDS = 4
+# phase 14b: a 3-level hierarchy the card had not run (level 2: 16 raw atoms
+# of width 193 over the 96-channel level-1 map), on 32 blocks
+HIER3 = dict(counts=(64, 32, 16), scales=(32, 96, 288), block_size=16384, num_coefs=(512, 192, 64), num_select=8)
+
+
+def mesh_of(axis: str):
+    from hsc_torch.parallel import make_mesh
+
+    return make_mesh({axis: MESH_SHARDS}, devices=["cuda:0"] * MESH_SHARDS)
+
+
+def init_batch_check(dev, mld, xs) -> None:
+    """Phase 14a, first: the level-0 init of 64 flagship blocks is the same
+    bits at batch 64, 32, 17 and 1 (a shard's batch is not the local
+    path's where the corpus is ragged)."""
+    import torch
+
+    from hsc_torch.ops.encode import encode_init_batched
+    from hsc_torch.params import level_params_from_mld
+
+    bank = level_params_from_mld(mld, 0, dev).bank
+    x = torch.from_numpy(xs[:BATCH, :, None]).to(dev)
+    want = encode_init_batched(x, bank)
+    for bs in (32, 17, 1):
+        parts = [encode_init_batched(x[i : i + bs], bank) for i in range(0, BATCH, bs)]
+        for j, name in enumerate(("scores", "e0", "peak")):
+            got = torch.cat([p[j] for p in parts])
+            if not bits_equal(got, want[j]):
+                diff = got != want[j]
+                log(f"[14] init at batch {bs}: {name} differs from batch {BATCH} first at "
+                    f"{[int(v) for v in diff.nonzero()[0]]}, {int(diff.sum())} cells, max |diff| "
+                    f"{float((got - want[j]).abs().max()):.3g}")
+            check(bits_equal(got, want[j]), f"the level-0 init at batch {bs} != at batch {BATCH} ({name})")
+    log(f"[14] the level-0 init of {BATCH} flagship blocks: scores, e0 and peak bitwise the same at batch "
+        f"{BATCH}, 32, 17 and 1")
+
+
+def dp_codec(dev, card, mld, xs, blob, rows) -> tuple[dict, dict]:
+    """Phase 14a: CorpusEncoder on the 4-shard mesh at the flat flagship's
+    128 blocks of phase 5, counted, its container and rows byte-identical
+    to the local path's (and a ragged corpus of 101 blocks), timed in turns
+    with the local path."""
+    from hsc_torch.runtime import CorpusEncoder
+
+    cfg = mld.config
+    bs = 32
+    local = CorpusEncoder(mld, device=dev, batch_size=bs)
+    with counted() as launches:
+        sharded = CorpusEncoder(mld, device=dev, batch_size=bs, mesh=mesh_of("data"))
+        got = sharded.encode(xs)
+        got_rows = sharded.decode(got)
+    want = {"mp_encode": MESH_SHARDS * -(-len(xs) // (bs * MESH_SHARDS)),
+            "int_decode": MESH_SHARDS * -(-len(xs) // bs), "sparse_init": 0, "ordered_decode": 0}
+    check(launches == want, f"mesh codec launches {launches}, expected {want}")
+    check(got == local.encode(xs), "mesh container != the local batch_size=32 container")
+    check(got == blob, "mesh container != phase 5's batch_size=64 container")
+    check(got_rows.tobytes() == rows.tobytes(), "mesh decode rows != phase 5's rows")
+    ragged = xs[:101]
+    rb = sharded.encode(ragged)
+    check(rb == local.encode(ragged), "mesh container of 101 blocks != the local one")
+    check(sharded.decode(rb).tobytes() == local.decode(rb).tobytes(), "mesh rows of 101 blocks != the local ones")
+    mb = len(xs) * cfg.block_size * 4 / 1e6
+    enc_m, enc_l = turns(lambda: mb / wall_s(lambda: sharded.encode(xs)), lambda: mb / wall_s(lambda: local.encode(xs)), 4)
+    dec_m, dec_l = turns(lambda: mb / wall_s(lambda: sharded.decode(got)), lambda: mb / wall_s(lambda: local.decode(got)), 4)
+    log(f"[14] DP codec, {len(xs)} flat-flagship blocks, batch_size {bs}, {MESH_SHARDS} shards of cuda:0: launches "
+        f"{launches}; container == local batch 32 == phase 5's batch 64, rows == phase 5's, 101 blocks (padded) == "
+        f"local; card {card}")
+    log(f"[14] DP encode {stats(enc_m, 'MB/s', '.2f')} vs local {stats(enc_l, 'MB/s', '.2f')}; DP decode "
+        f"{stats(dec_m, 'MB/s', '.2f')} vs local {stats(dec_l, 'MB/s', '.2f')} (host wall, in turns)")
+    return launches, {"dp_encode_mb_s": statistics.median(enc_m), "local32_encode_mb_s": statistics.median(enc_l),
+                      "dp_decode_mb_s": statistics.median(dec_m), "local32_decode_mb_s": statistics.median(dec_l)}
+
+
+def dp_hierarchy(dev) -> dict:
+    """Phase 14b: the hierarchical DP codec on the 4-shard mesh (16 blocks a
+    shard) at the flagship hierarchy (int8 hand-off), the same with
+    hier_init='f32', and a 3-level hierarchy: each container byte-identical
+    to the local path's (batch 64, as phase 9) and backend='torch''s, and
+    the top streams through `DataParallelDecoder` in both modes bitwise the
+    local and plain decodes.  Returns the launches, counted."""
+    import torch
+
+    from hsc_torch import MultilevelDictionary, SignalGenerator, make_test_config
+    from hsc_torch.io import unpack_corpus
+    from hsc_torch.runtime import CorpusEncoder
+
+    total = dict.fromkeys(kernel_counters(), 0)
+    for name, kw, nb in (("int8", HIER, N_BLOCKS), ("f32", dict(HIER, hier_init="f32"), N_BLOCKS),
+                         ("3-level", HIER3, 32)):
+        cfg = make_test_config(**kw)
+        mld = MultilevelDictionary.generate(cfg, seed=9)
+        xs = SignalGenerator(mld, rates=2e-3).generate_signals(nb, cfg.block_size, seed=5)
+        local = CorpusEncoder(mld, device=dev)
+        plain = CorpusEncoder(mld, device=dev, backend="torch")
+        t0 = time.perf_counter()
+        with counted() as launches:
+            sharded = CorpusEncoder(mld, device=dev, batch_size=BATCH // MESH_SHARDS, mesh=mesh_of("data"))
+            blob = sharded.encode(xs)
+            rows = sharded.decode(blob)
+            _, blocks = unpack_corpus(blob)
+            streams = [s[0][1] for s in blocks]
+            by_mode = {m: sharded.dp_dec.decode_batch_device(streams, mode=m).cpu() for m in ("integer", "ordered")}
+        wall = time.perf_counter() - t0
+        for k, v in launches.items():
+            total[k] += v
+        want_init = "sparse_init" if cfg.hier_init == "int8" else None
+        check(launches["mp_encode"] > 0 and (want_init is None or launches[want_init] > 0)
+              and launches["int_decode"] > 0 and launches["ordered_decode"] > 0,
+              f"{name} hierarchy on the mesh: a kernel was never launched: {launches}")
+        check(blob == local.encode(xs), f"{name} hierarchy: mesh container != local container")
+        check(blob == plain.encode(xs), f"{name} hierarchy: mesh container != backend='torch' container")
+        check(rows.tobytes() == local.decode(blob).tobytes(), f"{name} hierarchy: mesh rows != local rows")
+        for m, got in by_mode.items():
+            check(bits_equal(got, local.coder.reconstruct_batch_device(streams, mode=m).cpu())
+                  and bits_equal(got, plain.coder.reconstruct_batch_device(streams, mode=m).cpu()),
+                  f"{name} hierarchy: DataParallelDecoder {m} rows != local or plain rows")
+        events = [int(s.positions.shape[0]) for s in streams]
+        log(f"[14] {name} hierarchy (counts {cfg.counts}, scales {cfg.scales}, num_coefs {cfg.num_coefs}, hier_init "
+            f"{cfg.hier_init}), {nb} blocks on the mesh: launches {launches}; {len(blob)} bytes "
+            f"(ratio {xs.nbytes / len(blob):.2f}x, top events mean {np.mean(events):.1f}); container == local == "
+            f"backend='torch'; DataParallelDecoder rows in both modes == local == plain; {wall:.2f} s")
+        del local, plain, sharded
+        torch.cuda.empty_cache()
+    return total
+
+
+def single_block_mesh(dev, card) -> tuple[dict, dict]:
+    """Phases 14c-d: SP on one 65536-sample block of phase 11's config on
+    {'seq': 4}, TP on one flat-flagship block on {'model': 4}, both of
+    cuda:0.  Given the single-device init, bitwise the local kernel loop at
+    num_select 1 and 8 and at an SNR stop; with their own init, either the
+    same stream or a first differing event where their init is within 1e-5
+    of the peak of the single-device one."""
+    import torch
+
+    from hsc_torch import MultilevelDictionary, SignalGenerator, make_test_config
+    from hsc_torch.ops import mp_kernels
+    from hsc_torch.ops.encode import encode_init_batched, quantizer_steps
+    from hsc_torch.params import level_params_from_mld
+    from hsc_torch.parallel.sp import sp_init, sp_loop, sp_shard_scores
+    from hsc_torch.parallel.tp import tp_init, tp_loop, tp_shard_scores
+
+    numbers = {}
+    for mode, kw, seeds in (("sp", dict(counts=(16,), scales=(32,), block_size=65536, num_coefs=(512,)), (21, 23)),
+                            ("tp", FLAGSHIP, (7, 3))):
+        cfg = make_test_config(**kw)
+        mld = MultilevelDictionary.generate(cfg, seed=seeds[0])
+        x = SignalGenerator(mld, rates=2e-3).generate_signals(1, cfg.block_size, seed=seeds[1])[0]
+        params = level_params_from_mld(mld, 0, dev)
+        s0, e0, peak = encode_init_batched(torch.from_numpy(x[None, :, None]).to(dev), params.bank)
+        sc, iv = quantizer_steps(peak.cpu().numpy(), cfg.amp_bits)
+        sc_t, iv_t = torch.from_numpy(sc).to(dev), torch.from_numpy(iv).to(dev)
+        axis = "seq" if mode == "sp" else "model"
+        mesh = mesh_of(axis)
+        gram = params.gram_t if mode == "sp" else torch.from_numpy(mld.gram(0)).to(dev)
+        shards = (sp_shard_scores(mesh, s0[0], cfg.block_size) if mode == "sp" else tp_shard_scores(mesh, s0[0]))
+        loop = sp_loop if mode == "sp" else tp_loop
+        for ns, tol in ((1, None), (8, None), (8, 5.0)):
+            kw_l = dict(num_coefs=cfg.num_coefs[0], amp_bits=cfg.amp_bits, num_select=ns, tolerance_snr=tol)
+            want = mp_kernels.mp_loop(s0.clone(), e0, sc_t, iv_t, params, **kw_l)
+            t0 = time.perf_counter()
+            got = loop(mesh, shards, e0[0], sc[0], iv[0], gram, **kw_l)
+            n = int(got.count)  # waits for the loop
+            dt = time.perf_counter() - t0
+            check(n == int(want.count[0]) and n > 0, f"{mode} ns={ns} tol={tol}: count {n} != {int(want.count[0])}")
+            for f in ("positions", "atoms", "codes"):
+                check(torch.equal(getattr(got, f)[:n], getattr(want, f)[0, :n]),
+                      f"{mode} ns={ns} tol={tol}: {f} != the local kernel loop's")
+            check(got.energy_res.item() == want.energy_res[0].item(), f"{mode} ns={ns} tol={tol}: energy_res differs")
+            numbers[f"{mode}_s_ns{ns}" + ("_snr" if tol else "")] = dt
+            log(f"[14] {mode.upper()} on {MESH_SHARDS} shards of cuda:0, one block of {cfg.block_size} samples "
+                f"({cfg.counts[0]} atoms of width {cfg.scales[0]}), ns={ns} tol={tol}, given the local init: "
+                f"{n} events bitwise the local kernel loop; {dt:.3f} s per block; card {card}")
+        # un-injected: the sharded init, then the contract of ROADMAP "How a slice is held"
+        init = sp_init if mode == "sp" else tp_init
+        own_s0, own_e0, own_peak = init(mesh, x, params.bank)
+        full = torch.cat(own_s0, dim=1)[:, : s0.shape[2]] if mode == "sp" else torch.cat(own_s0)
+        err = float((full - s0[0]).abs().max())
+        check(err <= 1e-5 * float(peak[0]), f"{mode} init off the local init by {err:.3g} (peak {float(peak[0]):.4g})")
+        kw_l = dict(num_coefs=cfg.num_coefs[0], amp_bits=cfg.amp_bits, num_select=8)
+        o_sc, o_iv = quantizer_steps(own_peak.cpu().numpy(), cfg.amp_bits)
+        own = loop(mesh, own_s0, own_e0, o_sc, o_iv, gram, **kw_l)
+        want = mp_kernels.mp_loop(s0.clone(), e0, sc_t, iv_t, params, **kw_l)
+        n, m = int(own.count), int(want.count[0])
+        fields = [torch.cat([getattr(own, f)[:n].cpu(), torch.zeros(max(m - n, 0), dtype=torch.int32)])[:max(n, m)]
+                  for f in ("positions", "atoms", "codes")]
+        ref = [torch.cat([getattr(want, f)[0, :m].cpu(), torch.zeros(max(n - m, 0), dtype=torch.int32)])[:max(n, m)]
+               for f in ("positions", "atoms", "codes")]
+        differ = [j for j in range(max(n, m)) if any(int(a[j]) != int(b[j]) for a, b in zip(fields, ref))]
+        if not differ and n == m:
+            log(f"[14] {mode.upper()} with its own init (within {err / float(peak[0]):.3g} of the peak of the local "
+                f"init): the local stream, {n} events, bitwise")
+        else:
+            j = differ[0] if differ else min(n, m)
+            t, f = int(ref[0][min(j, len(ref[0]) - 1)]), int(ref[1][min(j, len(ref[1]) - 1)])
+            d = float((full[f, t] - s0[0, f, t]).abs())
+            log(f"[14] {mode.upper()} with its own init: the streams first differ at event {j} (local: position {t}, "
+                f"atom {f}); the inits differ there by {d:.3g}, within 1e-5 of the peak {float(peak[0]):.4g}")
+    return numbers
+
+
+def mesh_learning(dev, card, xs) -> tuple[dict, dict]:
+    """Phase 14e: distributed k-means at `bench.py:291-296`'s geometry on
+    {'data': 4}, timed, bitwise run to run and atom for atom the local
+    loop's; the online learner on the mesh at the flat flagship (64
+    blocks, 5 steps), counted, bitwise run to run, its first step within
+    1e-4 (loss, relative) and 1e-5 (bank) of the local learner's."""
+    import torch
+
+    from hsc_torch import make_test_config
+    from hsc_torch.learn import OnlineConvolutionalDictionaryLearner, kmeans_refine_device
+    from hsc_torch.parallel import distributed_kmeans
+
+    m, d, k, iters = KMEANS
+    rng = np.random.default_rng(0)
+    flat = rng.standard_normal((m, d)).astype(np.float32)
+    cents = rng.standard_normal((k, d)).astype(np.float32)
+    cents /= np.linalg.norm(cents, axis=1, keepdims=True)
+    w_d, c_d = torch.from_numpy(flat).to(dev), torch.from_numpy(cents).to(dev)
+    mesh = mesh_of("data")
+    first = distributed_kmeans(mesh, w_d, c_d, iters)
+    times = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        again = distributed_kmeans(mesh, w_d, c_d, iters)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        check(bits_equal(again[0], first[0]) and bits_equal(again[1], first[1]), "distributed k-means differs run to run")
+    local_c, local_o = kmeans_refine_device(w_d, c_d, iterations=iters)
+    sims = (first[0] @ local_c.T).abs()
+    cos = float(sims.max(dim=1).values.min())
+    check(cos > 0.99, f"a distributed k-means atom has no local counterpart (min max |cos| {cos:.4f})")
+    o_rel = float(((first[1] - local_o) / local_o).abs().max())
+    ms = statistics.median(times)
+    log(f"[14] distributed k-means, {m} windows x {d}, {k} centroids, {iters} iterations on {MESH_SHARDS} shards: "
+        f"{stats(times, 'ms')} (CUDA events, 5 runs) = {m * iters / ms / 1e3:.2f} M window-assignments/s; bitwise run "
+        f"to run; every atom within |cos| >= {cos:.6f} of the local loop's, objectives within {o_rel:.3g} relative; "
+        f"card {card}")
+
+    cfg = make_test_config(**FLAGSHIP)
+    bank0 = unit_bank(np.random.default_rng(0), cfg.counts[0], cfg.scales[0])
+    xb = xs[:BATCH]
+
+    def run(with_mesh):
+        learner = OnlineConvolutionalDictionaryLearner(bank0, num_coefs=cfg.num_coefs[0], amp_bits=cfg.amp_bits,
+                                                       mesh=mesh if with_mesh else None, device=dev)
+        step_s, banks = [], []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            learner.step(xb)  # returns the loss as a float: the step has ended
+            step_s.append(time.perf_counter() - t0)
+            banks.append(learner.bank.detach().clone())
+        return learner, step_s, banks
+
+    with counted() as launches:
+        a, step_s, banks_a = run(True)
+    check(launches["mp_encode"] > 0 and launches["ordered_decode"] > 0,
+          f"the mesh online learner did not launch both kernels: {launches}")
+    b, _, _ = run(True)
+    check(bits_equal(a.bank.detach(), b.bank.detach()) and a.loss_history == b.loss_history,
+          "two mesh online runs gave different banks")
+    loc, loc_s, banks_l = run(False)
+    l_rel = abs(a.loss_history[0] - loc.loss_history[0]) / abs(loc.loss_history[0])
+    b_err = float((banks_a[0] - banks_l[0]).abs().max())
+    check(l_rel <= 1e-4 and b_err <= 1e-5, f"mesh online step 1: loss off by {l_rel:.3g} relative, bank by {b_err:.3g}")
+    drift = float((banks_a[-1] - banks_l[-1]).abs().max())
+    log(f"[14] online learner on {MESH_SHARDS} shards, {BATCH} flat-flagship blocks, 5 steps: launches {launches}; "
+        f"bitwise run to run; step 1 loss within {l_rel:.3g} relative and bank within {b_err:.3g} of the local "
+        f"learner's; after 5 steps the banks differ by {drift:.3g}; per step {stats(step_s, 's')} vs local "
+        f"{stats(loc_s, 's')}")
+    return launches, {"dist_kmeans_ms": ms, "online_mesh_step_s": statistics.median(step_s),
+                      "online_local_step_s": statistics.median(loc_s)}
+
+
+def mesh_cli(dev, mld, xs) -> None:
+    """Phase 14f: `python -m hsc_torch.cli encode --mesh 1 --device cuda`
+    gives the bytes of an encode with no mesh; `--mesh N` past the visible
+    cards exits naming them."""
+    import os
+    import shutil
+
+    import torch
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "chip_smoke", "cli_mesh")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    mld.save(os.path.join(work, "d.npz"))
+    np.save(os.path.join(work, "sig.npy"), xs[:8].reshape(-1))
+
+    def cli(*args):
+        return subprocess.run([sys.executable, "-m", "hsc_torch.cli", "encode", "--dict", os.path.join(work, "d.npz"),
+                               "--input", os.path.join(work, "sig.npy"), "--device", "cuda", *args], cwd=root,
+                              capture_output=True, text=True, timeout=300)
+
+    outs = {tag: cli("--output", os.path.join(work, f"{tag}.hsct"), *extra)
+            for tag, extra in (("local", []), ("mesh1", ["--mesh", "1"]))}
+    for tag, proc in outs.items():
+        check(proc.returncode == 0, f"CLI encode ({tag}) failed: {proc.stderr[-2000:]}")
+    with open(os.path.join(work, "local.hsct"), "rb") as f, open(os.path.join(work, "mesh1.hsct"), "rb") as g:
+        check(f.read() == g.read(), "CLI encode --mesh 1 != CLI encode with no mesh")
+    visible = torch.cuda.device_count()
+    bad = cli("--output", os.path.join(work, "bad.hsct"), "--mesh", str(visible + 1))
+    want = f"--mesh {visible + 1}: only {visible} device(s) visible"
+    check(bad.returncode != 0 and want in bad.stderr, f"CLI --mesh {visible + 1}: {bad.returncode}, {bad.stderr[-500:]}")
+    check(not os.path.exists(os.path.join(work, "bad.hsct")), "CLI --mesh past the cards wrote a file")
+    log(f"[14] CLI encode --mesh 1 --device cuda == no mesh, bytewise; --mesh {visible + 1} exits: {want!r}")
+
+
+def parallel(dev, card, mld, xs, blob, rows) -> dict:
+    """Phase 14: the parallel layer on 4-shard meshes of the one card.
+    Returns the measured numbers and the launches of the mesh paths (the DP
+    codec, the hierarchies, the online learner), counted each on its own."""
+    t0 = time.perf_counter()
+    init_batch_check(dev, mld, xs)
+    launches, out = dp_codec(dev, card, mld, xs, blob, rows)
+    for k, v in dp_hierarchy(dev).items():
+        launches[k] += v
+    out.update(single_block_mesh(dev, card))
+    online_launches, numbers = mesh_learning(dev, card, xs)
+    out.update(numbers)
+    for k, v in online_launches.items():
+        launches[k] += v
+    mesh_cli(dev, mld, xs)
+    check(all(v > 0 for v in launches.values()), f"a kernel was never launched on the mesh paths: {launches}")
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[14] the parallel layer took {out['seconds']:.1f} s; launches on the mesh paths {launches}")
+    return out
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
 
     from hsc_torch import MultilevelDictionary, SignalGenerator, make_test_config
     from hsc_torch import _build
@@ -1630,6 +1990,7 @@ def main() -> int:
     deep_level0(dev)
     serving(dev, mld, xs, blob, decoded)
     learned = learning(dev, card, mld, xs)
+    meshed = parallel(dev, card, mld, xs, blob, decoded)
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "hsc_tpu", "optax", "orbax"))
     check(not loaded, f"JAX, optax, orbax or the JAX package was imported: {loaded}")
@@ -1646,8 +2007,10 @@ def main() -> int:
          "library_ms": None},
         *hier_kernels,
     ]
-    for row in kernels:  # phase 13's counts, beside the main path's
+    for row in kernels:  # phases 13's and 14's counts, beside the main path's
         row["launches_learning"] = learned["launches"][row["name"]]
+        row["launches_mesh"] = meshed["launches"][row["name"]]
+    log(f"[end] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

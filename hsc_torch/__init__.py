@@ -22,6 +22,9 @@ for an NVIDIA Hopper card and mirrors its layout and names:
                   (`trainer`), the online learner, whose overlap-add is the
                   ordered-decode kernel with a hand-written gradient
                   (`online`), and npz checkpoints (`checkpoint`)
+  parallel      — a device mesh of one process (devices may repeat),
+                  the data-parallel codec, sequence- and tensor-parallel
+                  encode of one long block, and distributed k-means
   analysis      — rate accounting, rate-distortion curves and per-level
                   diagnostics
   cli           — the command-line codec (`python -m hsc_torch.cli`,

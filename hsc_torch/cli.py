@@ -81,8 +81,8 @@ def parse_args(argv=None):
     p.add_argument("--journal-dir", default=None)
     p.add_argument("--mesh", type=int, default=None, metavar="N",
                    help="shard encode/decode batches over a 'data' mesh of "
-                   "N devices (not ported yet: exits naming the ROADMAP "
-                   "item 'Parallel')")
+                   "N devices (containers/rows byte-identical to the local "
+                   "path): the first N cards, or N shards with --device cpu")
     p.add_argument("--metrics", default=None)
     p.add_argument("--batch-size", type=int, default=64)
     p.add_argument("--wav-rate", type=int, default=16000,
@@ -222,21 +222,32 @@ def main(argv=None):
 
         cfg2 = dataclasses.replace(mld.config, **overrides)
         mld = MultilevelDictionary(cfg2, mld.dicts)
+    device = _device(args)
+    mesh = None
     if args.mesh is not None:
-        from .device import refuse_mesh
+        import torch
 
-        try:
-            refuse_mesh(args.mesh, f"--mesh {args.mesh}")
-        except NotImplementedError as e:
-            raise SystemExit(str(e))
+        from .parallel import make_mesh
+
+        if device.type == "cuda":
+            # the first N visible cards, as the JAX CLI takes its first N devices
+            visible = torch.cuda.device_count()
+            if args.mesh > visible:
+                raise SystemExit(f"--mesh {args.mesh}: only {visible} device(s) visible")
+            devices = [f"cuda:{i}" for i in range(args.mesh)]
+        else:
+            # N shards on the CPU: the counterpart of JAX's virtual CPU devices
+            devices = ["cpu"] * args.mesh
+        mesh = make_mesh({"data": args.mesh}, devices=devices)
     codec = CorpusEncoder(
         mld,
-        device=_device(args),
+        device=device,
         backend=args.backend,
         batch_size=args.batch_size,
         journal_dir=args.journal_dir,
         metrics_path=args.metrics,
         distributed=args.distributed,
+        mesh=mesh,
         target_bps=args.target_bps,
         rate_mode=args.rate_mode,
     )

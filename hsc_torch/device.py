@@ -10,10 +10,6 @@ full float32: cuDNN convolutions default to TF32 (about three decimal
 digits), which would flip codes.  cuDNN is also pinned to deterministic,
 non-autotuned algorithms so one input gives one init in every call — the
 container bytes of a repeated encode depend on it.
-
-`refuse_mesh` is the one refusal of what is not ported yet: every entry
-point that takes a ``mesh=`` raises, naming the ROADMAP item that brings
-meshes.
 """
 
 from __future__ import annotations
@@ -40,9 +36,3 @@ def resolve_device(device) -> torch.device:
     torch.backends.cudnn.benchmark = False
     return dev
 
-
-def refuse_mesh(mesh, what: str) -> None:
-    """Raise `NotImplementedError` naming ROADMAP Queue 1 'Parallel' unless
-    `mesh` is None (`what` names the surface that was asked for one)."""
-    if mesh is not None:
-        raise NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1, 'Parallel')")

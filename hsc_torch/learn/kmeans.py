@@ -30,7 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..device import refuse_mesh, resolve_device
+from ..device import resolve_device
 
 
 class KMeansStats(NamedTuple):
@@ -232,9 +232,9 @@ class ConvolutionalDictionaryLearner:
         return wn[np.asarray(chosen)].astype(np.float32)
 
     def train(self, xs: np.ndarray, *, mesh=None, mesh_axis: str = "data") -> np.ndarray:
-        """Learn ``[K, W, C]`` filters from blocks ``[B, N, C]``; a `mesh`
-        raises (ROADMAP Queue 1, 'Parallel')."""
-        refuse_mesh(mesh, "mesh (distributed k-means)")
+        """Learn ``[K, W, C]`` filters from blocks ``[B, N, C]``.  With a
+        `mesh` (of the learner's device type) the k-means statistics are
+        sharded over `mesh_axis` (`parallel.learn.distributed_kmeans`)."""
         windows = extract_windows(
             xs, self.window, self.num_windows, mode=self.extraction, seed=self.seed
         )
@@ -244,10 +244,26 @@ class ConvolutionalDictionaryLearner:
         self.objective_history = []
         if self.algorithm == "samples":
             return cents.reshape(self.k, self.window, self.channels)
-        cents, objs = kmeans_refine_device(
-            torch.from_numpy(flat).to(self.device),
-            torch.from_numpy(cents).to(self.device),
-            iterations=self.iterations,
-        )
+        if mesh is not None:
+            from ..parallel.learn import distributed_kmeans
+            from ..parallel.mesh import check_mesh_device
+
+            check_mesh_device(mesh, self.device, "ConvolutionalDictionaryLearner.train")
+            shards = int(mesh.shape[mesh_axis])
+            pad = (-m) % shards
+            if pad:
+                # zero windows assign somewhere with score 0 and add nothing
+                # to the sums; counts inflate harmlessly (normalize is
+                # direction-only), and silent windows never reseed a dead atom
+                flat = np.concatenate([flat, np.zeros((pad, flat.shape[1]), flat.dtype)])
+            cents, objs = distributed_kmeans(
+                mesh, torch.from_numpy(flat), torch.from_numpy(cents), self.iterations, axis=mesh_axis
+            )
+        else:
+            cents, objs = kmeans_refine_device(
+                torch.from_numpy(flat).to(self.device),
+                torch.from_numpy(cents).to(self.device),
+                iterations=self.iterations,
+            )
         self.objective_history = objs.cpu().tolist()
         return cents.cpu().numpy().reshape(self.k, self.window, self.channels)

@@ -15,9 +15,13 @@ The reconstruction is `_OverlapAdd`: its forward is the ordered decode
 (`ops.decode_kernel.mp_decode_batch`, the CUDA kernel on a card), and its
 backward gathers each live event's window of the incoming gradient and sums
 them per atom with one signed one-hot product, so two runs give the same
-gradient bit for bit.  optax's Adam becomes `torch.optim.Adam` with the same
-defaults (b1 0.9, b2 0.999, eps 1e-8); the two round differently, so a bank
-agrees with the JAX package's to a tolerance, not bitwise.
+gradient bit for bit.  With a `mesh`, the minibatch encode stays unsharded
+(as in the JAX package); each shard computes the loss and gradient of its
+blocks on its device, the shards' losses and gradients are summed in shard
+order, and one optimizer step follows.  optax's Adam becomes
+`torch.optim.Adam` with the same defaults (b1 0.9, b2 0.999, eps 1e-8); the
+two round differently, so a bank agrees with the JAX package's to a
+tolerance, not bitwise.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..device import refuse_mesh, resolve_device
+from ..device import resolve_device
 from ..dictionary import bank_gram
 from ..models.coder import ConvolutionalMatchingPursuit
 from ..ops.decode import _live_events
@@ -81,8 +85,13 @@ class OnlineConvolutionalDictionaryLearner:
         mesh_axis: str = "data",
         device,
     ):
-        refuse_mesh(mesh, "mesh (psum'd online updates)")
         self.device = resolve_device(device)
+        if mesh is not None:
+            from ..parallel.mesh import check_mesh_device
+
+            check_mesh_device(mesh, self.device, "OnlineConvolutionalDictionaryLearner")
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
         self.bank = torch.nn.Parameter(
             torch.tensor(np.asarray(bank0, dtype=np.float32), device=self.device)
         )
@@ -113,11 +122,8 @@ class OnlineConvolutionalDictionaryLearner:
         # gradient, then both divided by the element count (as the JAX step)
         total = int(np.prod(xs.shape))
         self.opt.zero_grad(set_to_none=True)
-        recon = _OverlapAdd.apply(
-            self.bank, enc.positions, enc.atoms, enc.codes, enc.count, enc.scale, n
-        )
-        loss = (torch.from_numpy(xs).to(self.device) - recon).square().sum()
-        loss.backward()
+        events = (enc.positions, enc.atoms, enc.codes, enc.count, enc.scale)
+        loss = self._sharded_backward(xs, events, n)
         self.bank.grad.div_(total)
         self.opt.step()
         # 3. re-project to unit-norm atoms (the codec invariant)
@@ -128,3 +134,29 @@ class OnlineConvolutionalDictionaryLearner:
         val = float(loss.detach() / total)
         self.loss_history.append(val)
         return val
+
+    def _sharded_backward(self, xs: np.ndarray, events, n: int) -> torch.Tensor:
+        """Loss and gradient of the minibatch split over the mesh axis (one
+        shard on ``self.device`` without a mesh): each shard's sum of
+        squares and its gradient through `_OverlapAdd` on its device, summed
+        in shard order into the loss (returned) and ``bank.grad``."""
+        from ..parallel.mesh import psum
+
+        devs = [self.device] if self.mesh is None else self.mesh.axis_devices(self.mesh_axis)
+        b = xs.shape[0]
+        if b % len(devs):
+            raise ValueError(
+                f"a minibatch of {b} blocks must divide the {self.mesh_axis}-axis size {len(devs)}"
+            )
+        per = b // len(devs)
+        losses, grads = [], []
+        for i, dev in enumerate(devs):
+            rows = slice(i * per, (i + 1) * per)
+            bank = self.bank.detach().to(dev).requires_grad_(True)
+            recon = _OverlapAdd.apply(bank, *(e[rows].to(dev) for e in events), n)
+            loss = (torch.from_numpy(xs[rows]).to(dev) - recon).square().sum()
+            (grad,) = torch.autograd.grad(loss, bank)
+            losses.append(loss.detach())
+            grads.append(grad)
+        self.bank.grad = psum(self.device, grads)
+        return psum(self.device, losses)

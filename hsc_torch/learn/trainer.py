@@ -22,7 +22,7 @@ import os
 import numpy as np
 
 from ..config import CodecConfig
-from ..device import refuse_mesh, resolve_device
+from ..device import resolve_device
 from ..dictionary import MultilevelDictionary
 from ..models.coder import ConvolutionalMatchingPursuit
 from ..ops.encode import feature_map
@@ -38,7 +38,9 @@ class TrainerState:
 
 
 class MultilevelTrainer:
-    """Learns a full MultilevelDictionary from raw signal blocks on `device`."""
+    """Learns a full MultilevelDictionary from raw signal blocks on `device`;
+    with a `mesh` each level's k-means statistics are sharded over 'data'
+    (the level encodes stay unsharded, as in the JAX package)."""
 
     def __init__(
         self,
@@ -52,7 +54,6 @@ class MultilevelTrainer:
         mesh=None,
         device,
     ):
-        refuse_mesh(mesh, "mesh (sharded k-means statistics)")
         self.config = config
         self.algorithm = algorithm
         self.num_windows = num_windows
@@ -60,6 +61,11 @@ class MultilevelTrainer:
         self.seed = seed
         self.checkpoint_dir = checkpoint_dir
         self.device = resolve_device(device)
+        if mesh is not None:
+            from ..parallel.mesh import check_mesh_device
+
+            check_mesh_device(mesh, self.device, "MultilevelTrainer")
+        self.mesh = mesh  # shard each level's k-means statistics over 'data'
 
     def _learn_level(self, level: int, seqs: np.ndarray) -> np.ndarray:
         cfg = self.config
@@ -73,7 +79,7 @@ class MultilevelTrainer:
             seed=self.seed + level,
             device=self.device,
         )
-        return learner.train(seqs)
+        return learner.train(seqs, mesh=self.mesh)
 
     def _encode_level(
         self, level: int, dicts: list[np.ndarray], seqs: np.ndarray

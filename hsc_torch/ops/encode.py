@@ -39,12 +39,46 @@ class EncodedBlock(NamedTuple):
     energy_res: torch.Tensor  # float32 [B]
 
 
+def block_energy(xs: torch.Tensor) -> torch.Tensor:
+    """float32 energy ``[B]`` of blocks ``xs [B, N, C]``: the squares summed
+    in a fixed pairwise tree (halves added elementwise; at an odd width the
+    last column is added onto column 0 after the halving), so a block's e0
+    is the same bits at every batch size and on every device, with no
+    padded copy.  A reduction kernel's order is not: on the card it depends
+    on the batch (a block's e0 at batch 17 differed from batch 64 in the
+    last bits), and e0 decides the SNR stop."""
+    sq = xs.reshape(xs.shape[0], -1).square()
+    while sq.shape[1] > 1:
+        m = sq.shape[1]
+        h = m // 2
+        half = sq[:, :h] + sq[:, h : 2 * h]
+        if m % 2:
+            half[:, 0] += sq[:, m - 1]
+        sq = half
+    return sq[:, 0]
+
+
+def quantize(s: torch.Tensor, inv_scale: torch.Tensor, maxcode: float) -> torch.Tensor:
+    """The spec's quantizer: round half away from zero,
+    ``clip(sign(y) * floor(|y| + 0.5))`` of ``y = s * inv_scale``, as int32."""
+    y = s * inv_scale
+    r = torch.floor(y.abs() + 0.5) * torch.sign(y)
+    return r.clamp(-maxcode, maxcode).to(torch.int32)
+
+
+def energy_step(e_res: torch.Tensor, c_hat: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The residual energy after emitting ``c_hat`` at score `s`:
+    ``e - (2 c_hat) s + c_hat^2``, each op rounded (oracle op order), so
+    nothing contracts into a fused multiply-add."""
+    return (e_res - (2.0 * c_hat) * s) + c_hat * c_hat
+
+
 def encode_init_batched(xs: torch.Tensor, bank: torch.Tensor):
     """``xs [B, N, C]`` -> (scores0 [B, K, npos], e0 [B], peak [B]) — the
-    counterpart of `hsc_tpu.ops.encode.encode_init_batched`."""
+    counterpart of `hsc_tpu.ops.encode.encode_init_batched` (e0 through
+    `block_energy`)."""
     scores0 = correlate_bank_torch(xs, bank)
-    e0 = xs.square().sum(dim=(1, 2))
-    return scores0, e0, scores0.abs().amax(dim=(1, 2))
+    return scores0, block_energy(xs), scores0.abs().amax(dim=(1, 2))
 
 
 def _wrap_int32(acc: torch.Tensor) -> torch.Tensor:
@@ -316,10 +350,7 @@ def mp_encode_from_init_torch(
             col = scores[rows, :, t + (w - 1)]  # [B, K]
             f = (col.abs() * weights).argmax(dim=1)  # ties: lowest atom
             s = col[rows, f]
-            # quantizer spec: round half away from zero, sign*floor(|y|+0.5)
-            y = s * inv_scale
-            r = torch.floor(y.abs() + 0.5) * torch.sign(y)
-            code = r.clamp(-maxcode, maxcode).to(i32)
+            code = quantize(s, inv_scale, maxcode)
             guard_ok = (last_t < 0) | (t - last_t >= lag)
             emit = (
                 ~done
@@ -336,8 +367,7 @@ def mp_encode_from_init_torch(
                 buf.scatter_(1, slot, torch.where(emit, val, old)[:, None])
             count = count + emit.to(i32)
 
-            # e - (2 c_hat) s + c_hat^2, each op rounded (oracle op order)
-            e_res = torch.where(emit, (e_res - (2.0 * c_hat) * s) + c_hat * c_hat, e_res)
+            e_res = torch.where(emit, energy_step(e_res, c_hat, s), e_res)
             idx = (t[:, None] + lags)[:, None, :].expand(b, k, lag)
             window = scores.gather(2, idx) - c_hat[:, None, None] * gram_t[f]
             scores.scatter_(2, idx, window)

@@ -18,8 +18,9 @@ Around it, as in the JAX package:
 
 The host code is copied from `hsc_tpu.runtime`, quirks included, because
 the container bytes depend on it: a container written here is
-byte-identical to the JAX package's for the same streams.  Meshes (`mesh=`)
-raise `NotImplementedError` naming the ROADMAP item that brings them.
+byte-identical to the JAX package's for the same streams.  With a `mesh=`
+(`parallel.mesh`), encode and decode shard their batches over the mesh's
+'data' axis (`parallel.dp`), with byte-identical containers and rows.
 """
 
 from __future__ import annotations
@@ -35,7 +36,6 @@ from itertools import islice
 import numpy as np
 
 from .config import CodecConfig
-from .device import refuse_mesh
 from .dictionary import MultilevelDictionary
 from .io.bitstream import (
     MAGIC,
@@ -371,7 +371,10 @@ class CorpusEncoder:
     (`'corpus'`: blocks journal full top-form payloads, and truncation and
     the distributed split happen at container assembly).  `journal_dir`
     makes the encode resumable; `metrics_path` appends JSONL records
-    (process 0 only)."""
+    (process 0 only).  `mesh` (a `parallel.Mesh` of the `device` type):
+    encode and decode shard over `mesh_axis`, every level of the hierarchy
+    on every shard (`parallel.dp`), in super-batches of ``batch_size`` x
+    shards blocks."""
 
     def __init__(
         self,
@@ -384,11 +387,11 @@ class CorpusEncoder:
         metrics_path: str | None = None,
         process_index: int = 0,
         mesh=None,
+        mesh_axis: str = "data",
         distributed: bool = False,
         target_bps: float | None = None,
         rate_mode: str = "block",
     ):
-        refuse_mesh(mesh, "mesh (data-parallel encode/decode)")
         self.mld = mld
         self.cfg: CodecConfig = mld.config
         self.coder = HierarchicalConvolutionalSparseCoder(mld, backend=backend, device=device)
@@ -416,6 +419,13 @@ class CorpusEncoder:
             else None
         )
         self.metrics = MetricsLogger(metrics_path, process_index)
+        self.dp = None
+        self.dp_dec = None
+        if mesh is not None:
+            from .parallel.dp import DataParallelDecoder, HierarchicalDataParallelEncoder
+
+            self.dp = HierarchicalDataParallelEncoder(mesh, self.coder, axis=mesh_axis)
+            self.dp_dec = DataParallelDecoder(mesh, self.coder, axis=mesh_axis)
 
     # -- encode -------------------------------------------------------------
 
@@ -514,7 +524,11 @@ class CorpusEncoder:
         """Encode `todo` (local indexes into `blocks`) into `payloads`,
         journaled under global ids ``local + offset``: one level through the
         pipelined three-stage path, several through the level-pipelined
-        path; batches are uploaded per pipeline window."""
+        path; batches are uploaded per pipeline window.  With a mesh, the
+        data-parallel path (`_encode_dp`)."""
+        if self.dp is not None:
+            self._encode_dp(blocks, todo, payloads, offset)
+            return
         batches = []
         id_groups = []
         for start in range(0, len(todo), self.batch_size):
@@ -542,6 +556,23 @@ class CorpusEncoder:
             total_bytes += b
             snrs += sn
         self._log_encode_metrics(len(todo), dt, events, total_bytes, snrs)
+
+    def _encode_dp(self, blocks, todo, payloads, offset: int = 0) -> None:
+        """Mesh-sharded encode: super-batches of ``batch_size`` x shards
+        blocks through the `HierarchicalDataParallelEncoder` (each shard gets
+        `batch_size` blocks; the last super-batch pads), one metrics record
+        per super-batch."""
+        top = self.cfg.num_levels - 1
+        super_batch = self.batch_size * self.dp.num_shards
+        for start in range(0, len(todo), super_batch):
+            ids = todo[start : start + super_batch]
+            t0 = time.perf_counter()
+            enc = self.dp.encode(blocks[ids])[top]
+            dt = time.perf_counter() - t0
+            events, total_bytes, snrs = self._emit_batched(enc, ids, payloads, offset)
+            self._log_encode_metrics(
+                len(ids), dt, events, total_bytes, snrs, shards=self.dp.num_shards
+            )
 
     def encode(self, blocks: np.ndarray, index: bool = False) -> bytes:
         """Encode ``[B, block_size]`` into the container format; resumable —
@@ -663,10 +694,11 @@ class CorpusEncoder:
         units_left: dict[int, int] = {}
         next_yield = 0
 
+        # sharded over the mesh when the codec has one: the same rows
+        dec = self.coder.reconstruct_batch_device if self.dp_dec is None else self.dp_dec.decode_batch_device
+
         def decode(streams, level):
-            return self.coder.reconstruct_batch_device(
-                streams, level=level, mode=mode, rep_bits=rep_bits
-            )
+            return dec(streams, level=level, mode=mode, rep_bits=rep_bits)
 
         def drain_one():
             ci, ids, dev = pending.popleft()
@@ -807,8 +839,7 @@ class CorpusReader:
         batch_size: int = 64,
         mesh=None,
     ):
-        refuse_mesh(mesh, "mesh (data-parallel encode/decode)")
-        self.codec = CorpusEncoder(mld, device=device, backend=backend, batch_size=batch_size)
+        self.codec = CorpusEncoder(mld, device=device, backend=backend, batch_size=batch_size, mesh=mesh)
         self._file = open(path, "rb")
         try:
             self._data = mmap.mmap(self._file.fileno(), 0, access=mmap.ACCESS_READ)

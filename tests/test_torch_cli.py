@@ -1,8 +1,9 @@
 """The port's command-line codec (`hsc_torch.cli`) against the JAX package's
 (`hsc_tpu.cli`) on the CPU, both run in-process.
 
-Mirrors tests/test_cli.py but for its mesh case, which becomes the refusal
-naming ROADMAP item 'Parallel'.  With JAX's level-0 init injected, `encode`
+Mirrors tests/test_cli.py; its mesh round trip is in
+tests/test_torch_parallel_runtime.py, and here `--mesh` past the visible
+cards exits as the JAX CLI does.  With JAX's level-0 init injected, `encode`
 writes byte-identical containers and `learn --algorithm samples` the same
 dictionary arrays; `decode` gives rows bitwise JAX's with no injection
 (decoding is bitwise in the spec); `info` prints the same JSON; `assemble`
@@ -308,11 +309,18 @@ def test_cli_assemble_cbr_journal(cli_fixture, tmp_path, run):
     assert not (jdir3 / "corpus.journal").exists() and not (jdir3 / "corpus.config").exists()
 
 
-def test_cli_mesh_exits_naming_parallel(cli_fixture, tmp_path, run):
+def test_cli_mesh_exits_naming_parallel(cli_fixture, tmp_path, run, monkeypatch):
+    """`--mesh N` past the visible cards exits with the JAX CLI's text,
+    "--mesh N: only M device(s) visible", before any device work: here a
+    host that reports one card asks for two, for encode and decode, and
+    nothing is written."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     d = cli_fixture
     for verb, inp in (("encode", d / "sig.npy"), ("decode", d / "sig.npy")):
-        msg = _fails(run, verb, "--dict", d / "dict.npz", "--input", inp, "--output", tmp_path / "x", "--mesh", "2")
-        assert "ROADMAP" in msg and "Parallel" in msg
+        msg = _fails(run, verb, "--dict", d / "dict.npz", "--input", inp, "--output", tmp_path / "x", "--mesh", "2",
+                     device="cuda")
+        assert msg == "--mesh 2: only 1 device(s) visible"
     assert not (tmp_path / "x").exists()
 
 

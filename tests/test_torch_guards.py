@@ -1,6 +1,6 @@
 """Guards of the port: it never imports JAX or the JAX package, never drifts
-to the CPU, never falls back from a kernel, and refuses what it does not run
-yet."""
+to the CPU, never falls back from a kernel, and every surface that takes a
+mesh runs with one."""
 
 import ast
 import dataclasses
@@ -10,6 +10,7 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 
@@ -21,6 +22,7 @@ from hsc_torch.learn import ConvolutionalDictionaryLearner, MultilevelTrainer, O
 from hsc_torch.models import HierarchicalConvolutionalSparseCoder
 from hsc_torch.ops import decode_integer_kernel, decode_kernel, init_kernels, mp_kernels
 from hsc_torch.params import dictionary_from_arrays
+from hsc_torch.parallel import make_mesh
 from hsc_torch.runtime import CorpusEncoder, CorpusReader
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -160,31 +162,53 @@ def test_cpu_path_launches_no_kernel(port_mld1, port_mld2):
 
 @pytest.mark.parametrize("what", ["mesh", "reader_mesh", "learner_mesh", "trainer_mesh", "online_mesh",
                                   "cli_mesh"])
-def test_unported_options_raise(port_mld1, tmp_path, what):
-    """Meshes are the one unported option: every entry point that takes one
-    refuses it, naming the ROADMAP item, before touching a file or the
-    device (the CLI exits with the same text)."""
+def test_mesh_surfaces_run(port_mld1, tmp_path, what):
+    """Every entry point that takes a mesh runs with one: here a 2-shard
+    mesh of the CPU, with the local path's result where it is bitwise
+    (containers, rows) and the right shapes where learning is held to a
+    tolerance (tests/test_torch_parallel_runtime.py holds those)."""
     mld1 = port_mld1
     cfg = mld1.config
-    xs = SignalGenerator(mld1, rates=4e-3).generate_signals(1, cfg.block_size, seed=73)
-    if what == "cli_mesh":
+    mesh = make_mesh({"data": 2}, devices=["cpu"] * 2)
+    xs = SignalGenerator(mld1, rates=4e-3).generate_signals(3, cfg.block_size, seed=73)
+    local = CorpusEncoder(mld1, device="cpu")
+    blob = local.encode(xs)
+    if what == "mesh":
+        codec = CorpusEncoder(mld1, device="cpu", mesh=mesh, journal_dir=str(tmp_path / "j"))
+        assert codec.encode(xs) == blob
+        assert codec.decode(blob).tobytes() == local.decode(blob).tobytes()
+    elif what == "reader_mesh":
+        path = tmp_path / "c.hsct"
+        path.write_bytes(blob)
+        with CorpusReader(str(path), mld1, device="cpu", mesh=mesh) as reader:
+            assert np.stack(list(reader.rows())).tobytes() == local.decode(blob).tobytes()
+    elif what == "learner_mesh":
+        d = ConvolutionalDictionaryLearner(4, 8, num_windows=64, iterations=3, device="cpu").train(xs, mesh=mesh)
+        assert d.shape == (4, 8, 1) and np.allclose(np.linalg.norm(d.reshape(4, -1), axis=1), 1.0, atol=1e-5)
+    elif what == "trainer_mesh":
+        learned = MultilevelTrainer(cfg, num_windows=64, iterations=2, checkpoint_dir=str(tmp_path / "j"),
+                                    mesh=mesh, device="cpu").train(xs)
+        assert [d.shape for d in learned.dicts] == [d.shape for d in mld1.dicts]
+    elif what == "online_mesh":
+        learner = OnlineConvolutionalDictionaryLearner(mld1.dicts[0], num_coefs=16, mesh=mesh, device="cpu")
+        assert np.isfinite(learner.step(xs[:2])) and learner.step_count == 1
+    else:
         mld1.save(str(tmp_path / "d.npz"))
-        with pytest.raises(SystemExit, match="ROADMAP.*Parallel"):
-            hsc_torch.cli.main(["encode", "--dict", str(tmp_path / "d.npz"), "--input", "x.npy",
-                                "--output", str(tmp_path / "j"), "--mesh", "2", "--device", "cpu"])
-        assert not (tmp_path / "j").exists()
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.*Parallel"):
-        if what == "mesh":
-            CorpusEncoder(mld1, device="cpu", mesh=object(), journal_dir=str(tmp_path / "j"))
-        elif what == "reader_mesh":
-            path = tmp_path / "c.hsct"
-            path.write_bytes(CorpusEncoder(mld1, device="cpu").encode(xs))
-            CorpusReader(str(path), mld1, device="cpu", mesh=object())
-        elif what == "learner_mesh":
-            ConvolutionalDictionaryLearner(4, 8, device="cpu").train(xs, mesh=object())
-        elif what == "trainer_mesh":
-            MultilevelTrainer(cfg, checkpoint_dir=str(tmp_path / "j"), mesh=object(), device="cpu")
-        else:
-            OnlineConvolutionalDictionaryLearner(mld1.dicts[0], mesh=object(), device="cpu")
-    assert not (tmp_path / "j").exists()
+        np.save(tmp_path / "x.npy", xs.reshape(-1))
+        hsc_torch.cli.main(["encode", "--dict", str(tmp_path / "d.npz"), "--input", str(tmp_path / "x.npy"),
+                            "--output", str(tmp_path / "c.hsct"), "--mesh", "2", "--device", "cpu"])
+        assert (tmp_path / "c.hsct").read_bytes() == blob
+
+
+@pytest.mark.cuda
+def test_cli_mesh_past_the_visible_cards(port_mld1, tmp_path):
+    """`--mesh N --device cuda` with N past the visible cards exits naming
+    them, before it writes anything."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    port_mld1.save(str(tmp_path / "d.npz"))
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(SystemExit, match=f"only {n - 1} device\\(s\\) visible"):
+        hsc_torch.cli.main(["encode", "--dict", str(tmp_path / "d.npz"), "--input", "x.npy",
+                            "--output", str(tmp_path / "c.hsct"), "--mesh", str(n), "--device", "cuda"])
+    assert not (tmp_path / "c.hsct").exists()

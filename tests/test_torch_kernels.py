@@ -643,3 +643,96 @@ def test_online_step_on_device(device, monkeypatch):
             assert mp_kernels.LAUNCHES > before[0] and decode_kernel.LAUNCHES > before[1]
         assert abs(got - want) <= 1e-4 * abs(want)
         torch.testing.assert_close(learners[0].bank.detach().cpu(), learners[1].bank.detach(), rtol=0, atol=1e-4)
+
+
+def _repeated_mesh(device, axis: str, n: int):
+    """A mesh of `n` shards on one device (the card's first, or the CPU)."""
+    from hsc_torch.parallel import make_mesh
+
+    return make_mesh({axis: n}, devices=["cuda:0" if device.type == "cuda" else "cpu"] * n)
+
+
+@pytest.mark.parametrize("mode", ["integer", "ordered"])
+def test_mesh_codec_equals_local(device, mode):
+    """The 2-level codec on a 4-shard mesh of one device (2 blocks a shard;
+    9 blocks, so the last super-batch pads): the container and rows of the
+    local batch-2 path, byte for byte; on the card every shard of every
+    level launches the greedy loop, the int8 level launches the int8 init,
+    and the sharded decode its mode's decode kernel."""
+    cfg = make_test_config(counts=(12, 8), scales=(16, 48), num_coefs=(96, 48), block_size=1024,
+                           num_select=4, decode_mode=mode)
+    mld = MultilevelDictionary.generate(cfg, seed=11)
+    xs = SignalGenerator(mld, rates=4e-3).generate_signals(9, cfg.block_size, seed=19)
+    local = CorpusEncoder(mld, device=device, batch_size=2)
+    blob = local.encode(xs)
+    rows = local.decode(blob)
+    counters = (mp_kernels, init_kernels, decode_integer_kernel, decode_kernel)
+    before = [c.LAUNCHES for c in counters]
+    sharded = CorpusEncoder(mld, device=device, batch_size=2, mesh=_repeated_mesh(device, "data", 4))
+    assert sharded.encode(xs) == blob
+    assert sharded.decode(blob).tobytes() == rows.tobytes()
+    on = device.type == "cuda"
+    got = [c.LAUNCHES - x for c, x in zip(counters, before)]
+    # 2 super-batches x 4 shards: 16 loops (both levels), 8 int8 inits; the
+    # decode's 5 chunks of 2 blocks x 4 shards
+    assert got == [16 * on, 8 * on, 20 * on * (mode == "integer"), 20 * on * (mode == "ordered")], got
+
+
+@pytest.mark.parametrize("mode", ["sp", "tp"])
+@pytest.mark.parametrize("num_select,tol", [(1, None), (4, None), (1, 6.0)])
+def test_sharded_loop_equals_local_kernel_loop(device, mode, num_select, tol):
+    """`sp_loop` on 4 'seq' shards and `tp_loop` on 4 'model' shards of one
+    device, given the local init of one block, emit the local greedy loop's
+    stream bit for bit (on the card: the CUDA kernel's)."""
+    from hsc_torch.parallel.sp import sp_loop, sp_shard_scores
+    from hsc_torch.parallel.tp import tp_loop, tp_shard_scores
+
+    cfg = make_test_config(num_select=num_select, tolerance_snr=tol)
+    mld = MultilevelDictionary.generate(cfg, seed=7)
+    xs, params, (s0, e0, scale, inv) = _init(mld, 2, 61, device)
+    kw = dict(num_coefs=cfg.num_coefs[0], amp_bits=cfg.amp_bits, num_select=num_select, tolerance_snr=tol)
+    b = 1  # block 0 is all zero
+    want = mp_kernels.mp_loop(s0[b : b + 1].clone(), e0[b : b + 1], scale[b : b + 1], inv[b : b + 1], params, **kw)
+    sc, iv = scale[b].cpu().numpy(), inv[b].cpu().numpy()
+    if mode == "sp":
+        mesh = _repeated_mesh(device, "seq", 4)
+        got = sp_loop(mesh, sp_shard_scores(mesh, s0[b], cfg.block_size), e0[b], sc, iv, params.gram_t, **kw)
+    else:
+        mesh = _repeated_mesh(device, "model", 4)
+        gram = torch.from_numpy(mld.gram(0)).to(device)
+        got = tp_loop(mesh, tp_shard_scores(mesh, s0[b]), e0[b], sc, iv, gram, **kw)
+    assert got.positions.device.type == device.type
+    n = int(want.count[0])
+    assert int(got.count) == n > 0
+    for f in ("positions", "atoms", "codes"):
+        assert torch.equal(getattr(got, f)[:n], getattr(want, f)[0, :n]), f
+    assert got.scale.item() == scale[b].item() and got.energy_res.item() == want.energy_res[0].item()
+
+
+def test_init_is_batch_invariant(device):
+    """A block's level-0 init (scores, e0 and peak) is the same bits in a
+    batch of 33, 16, 5 or 1 blocks: a mesh shard's batch is not the local
+    path's where a corpus is ragged.  e0 is `block_energy`'s fixed pairwise
+    tree, equal to the same tree summed in NumPy float32 (a reduction
+    kernel's order on the card depends on the batch)."""
+    from hsc_torch.ops.encode import block_energy
+
+    cfg = make_test_config(counts=(64,), scales=(32,), block_size=16384)
+    mld = MultilevelDictionary.generate(cfg, seed=7)
+    xs = SignalGenerator(mld, rates=2e-3).generate_signals(33, cfg.block_size, seed=3)
+    bank = level_params_from_mld(mld, 0, device).bank
+    x = torch.from_numpy(xs[:, :, None]).to(device)
+    want = encode_init_batched(x, bank)
+    for bs in (16, 5, 1):
+        parts = [encode_init_batched(x[i : i + bs], bank) for i in range(0, 33, bs)]
+        for j in range(3):
+            got = torch.cat([p[j] for p in parts])
+            assert torch.equal(got.view(torch.int32), want[j].view(torch.int32)), (bs, j)
+    tree = np.square(xs[:3].reshape(3, -1)).astype(np.float32)
+    while tree.shape[1] > 1:
+        m, h = tree.shape[1], tree.shape[1] // 2
+        half = tree[:, :h] + tree[:, h : 2 * h]
+        if m % 2:
+            half[:, 0] += tree[:, m - 1]
+        tree = half
+    assert block_energy(x[:3]).cpu().numpy().tobytes() == tree[:, 0].tobytes()
