@@ -132,6 +132,19 @@ Then:
      within 1e-4 (loss) and 1e-5 (bank) of the local learner's; (f) the CLI
      `encode --mesh 1 --device cuda` equal to no mesh, and `--mesh N` past
      the visible cards exits naming them.
+ 15. the hardware gates: (a) scripts/torch_fuzz_parity.py at fixed seeds,
+     each shape logged — 8 random single-level geometries (at least 2 with
+     a window of 130 or more) bitwise the plain loop and the oracle on the
+     kernel's init, 4 random 2-level hierarchies (int8 or f32 hand-off)
+     every level bitwise the pinned oracle and backend='torch' and the top
+     streams' decodes in both modes bitwise the oracle, and 4 random
+     containers (entropy, distributed, CBR, seek index sampled) encoded
+     twice to the same bytes, decoded on the card byte-identically to a
+     CPU decode of the same file in a subprocess and bitwise the oracle's
+     decode; (b) the parity gauntlet's check 5b, the integer-decode kernel
+     at W = 33, 48 and 59; (c) its check 7, the greedy-loop kernel at W =
+     160.  The gauntlet's other checks are phases above (ROADMAP Queue 1
+     item 4 maps them).
 
 Every phase is fatal on failure.  The NumPy spec it checks against is the
 port's own copy (`hsc_torch.oracle`, `hsc_torch.io`); the script fails if
@@ -140,9 +153,9 @@ last line it prints one JSON object with every kernel (launches on the
 counted hierarchical path, error against the plain version, its time as
 phases 6 and 10 time it, its device time, the plain version's, the bound
 computed from this run's inputs and, where one PyTorch call computes the
-same function, that call's time; `launches_learning` and `launches_mesh`
-count phases 13 and 14), then the
-card's name and power limit.  The last line is one JSON object with the
+same function, that call's time; `launches_learning`, `launches_mesh`
+and `launches_gates` count phases 13, 14 and 15), then the card's name
+and power limit.  The last line is one JSON object with the
 device.
 """
 
@@ -1770,6 +1783,105 @@ def parallel(dev, card, mld, xs, blob, rows) -> dict:
     return out
 
 
+# phase 15a: scripts/torch_fuzz_parity.py at fixed seeds (base seed 1: seeds
+# 1000-1007, of which 4 draw a window of 130 or more), shapes per mode
+FUZZ_BASE_SEED = 1
+FUZZ_SHAPES = {"flat": 8, "hierarchical": 4, "container": 4}
+
+
+def odd_width_int_decode(dev) -> None:
+    """Phase 15b, the parity gauntlet's check 5b
+    (scripts/check_tpu_parity.py:330-360): the integer-decode kernel at W =
+    33, 48 and 59, the widths at which the reference's kernel once wrote
+    wrong rows (K 24, 3000-sample blocks, 96 random events, counts 96 and
+    48), bitwise its plain version and `oracle.mp.mp_decode_integer`."""
+    import torch
+
+    from hsc_torch.ops import decode_integer_kernel
+    from hsc_torch.ops.decode import mp_decode_integer_batch_torch
+    from hsc_torch.oracle.mp import LevelStream, mp_decode_integer
+
+    drng = np.random.default_rng(99)
+    kdec, ndec, mdec = 24, 3000, 96
+    for wdec in (33, 48, 59):
+        nposd = ndec - wdec + 1
+        dpos = drng.integers(0, nposd, (2, mdec)).astype(np.int32)
+        datm = drng.integers(0, kdec, (2, mdec)).astype(np.int32)
+        dcds = drng.integers(-32767, 32768, (2, mdec)).astype(np.int32)
+        dcnt = np.array([mdec, mdec // 2], np.int32)
+        dstp = np.float32([1e-4, 2e-4])
+        drep = drng.integers(-2047, 2048, (kdec, wdec, 1)).astype(np.int32)
+        args = [torch.from_numpy(a).to(dev) for a in (dpos, datm, dcds, dcnt, dstp, drep)]
+        got = decode_integer_kernel.mp_decode_integer_batch(*args, n=ndec)
+        check(bits_equal(got, mp_decode_integer_batch_torch(*args, n=ndec)),
+              f"int_decode kernel != plain at W={wdec}")
+        for b in range(2):
+            st = LevelStream(dpos[b, :dcnt[b]], datm[b, :dcnt[b]], dcds[b, :dcnt[b]], np.float32(1), 0.0, 0.0)
+            check(got[b].cpu().numpy().tobytes() == mp_decode_integer(st, drep, dstp[b], ndec).tobytes(),
+                  f"int_decode kernel != oracle at W={wdec}, block {b}")
+
+
+def gates(dev) -> dict:
+    """Phase 15: the hardware gates.  (a) scripts/torch_fuzz_parity.py's
+    three modes at fixed seeds; (b) gauntlet check 5b; (c) gauntlet check 7,
+    the greedy-loop kernel at W = 160 (8 atoms, 24 coefficients,
+    2048-sample blocks, dictionary seed 44, signals seed 93), bitwise the
+    plain loop and the oracle given its init.  Returns the launches of all
+    three, counted, and the phase's seconds."""
+    import importlib
+    import os
+
+    from hsc_torch import MultilevelDictionary, SignalGenerator, make_test_config
+
+    t_phase = time.perf_counter()
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    fuzz = importlib.import_module("torch_fuzz_parity")
+    total = dict.fromkeys(kernel_counters(), 0)
+    runs = {"flat": fuzz.run_shape, "hierarchical": fuzz.run_hier_shape, "container": fuzz.run_container_shape}
+    for mode, n in FUZZ_SHAPES.items():
+        seeds = [FUZZ_BASE_SEED * 1000 + i for i in range(n)]
+        t0 = time.perf_counter()
+        with counted() as launches:
+            results = [runs[mode](seed, dev) for seed in seeds]
+        for r in results:
+            log(f"[15] {mode} {json.dumps(r)}")
+        bad = [(r["seed"], r["diff"]) for r in results if not r["ok"]]
+        check(not bad, f"phase 15 {mode} fuzz: shapes differ: {bad}")
+        want = {"flat": ("mp_encode",), "hierarchical": ("mp_encode", "int_decode", "ordered_decode"),
+                "container": ("mp_encode",)}[mode]
+        check(all(launches[k] > 0 for k in want), f"phase 15 {mode} fuzz never launched {want}: {launches}")
+        if mode == "flat":
+            wide = sum(r["w"] >= 130 for r in results)
+            check(wide >= 2, f"phase 15 flat fuzz drew {wide} windows of 130 or more, fewer than 2")
+        for k, v in launches.items():
+            total[k] += v
+        log(f"[15a] {mode} fuzz, seeds {seeds[0]}-{seeds[-1]}: {n}/{n} shapes bitwise (see the lines above); "
+            f"launches {launches}; {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with counted() as launches:
+        odd_width_int_decode(dev)
+    check(launches["int_decode"] == 3, f"check 5b launches {launches}")
+    log(f"[15b] gauntlet check 5b: int_decode kernel at W = 33, 48, 59 (K 24, N 3000, 96 events, counts [96, 48]) "
+        f"== plain == oracle bitwise; {time.perf_counter() - t0:.1f} s")
+    for k, v in launches.items():
+        total[k] += v
+    t0 = time.perf_counter()
+    cfg = make_test_config(counts=(8,), scales=(160,), num_coefs=(24,), block_size=2048)
+    mld = MultilevelDictionary.generate(cfg, seed=44)
+    xs = SignalGenerator(mld, rates=2e-3).generate_signals(2, cfg.block_size, seed=93)
+    with counted() as launches:
+        r = fuzz.flat_parity(mld, xs, dev)
+    check(r["ok"], f"gauntlet check 7 (W=160): {r['diff']}")
+    check(launches["mp_encode"] == 1, f"check 7 launches {launches}")
+    for k, v in launches.items():
+        total[k] += v
+    log(f"[15c] gauntlet check 7: mp_encode kernel at W = 160 (K 8, 24 coefficients, N 2048; events "
+        f"{r['events']}) == plain == oracle bitwise; {time.perf_counter() - t0:.1f} s")
+    seconds = time.perf_counter() - t_phase
+    log(f"[15] the hardware gates took {seconds:.1f} s; launches {total}")
+    return {"launches": total, "seconds": seconds}
+
+
 def main() -> int:
     import torch
 
@@ -1991,6 +2103,7 @@ def main() -> int:
     serving(dev, mld, xs, blob, decoded)
     learned = learning(dev, card, mld, xs)
     meshed = parallel(dev, card, mld, xs, blob, decoded)
+    gated = gates(dev)
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "hsc_tpu", "optax", "orbax"))
     check(not loaded, f"JAX, optax, orbax or the JAX package was imported: {loaded}")
@@ -2007,9 +2120,10 @@ def main() -> int:
          "library_ms": None},
         *hier_kernels,
     ]
-    for row in kernels:  # phases 13's and 14's counts, beside the main path's
+    for row in kernels:  # phases 13's, 14's and 15's counts, beside the main path's
         row["launches_learning"] = learned["launches"][row["name"]]
         row["launches_mesh"] = meshed["launches"][row["name"]]
+        row["launches_gates"] = gated["launches"][row["name"]]
     log(f"[end] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -33,9 +33,10 @@ for an NVIDIA Hopper card and mirrors its layout and names:
 The port keeps its own copies of the JAX package's NumPy modules, verbatim:
 `config`, `dictionary`, `signal`, `oracle` (the NumPy spec), `io` (the
 container format, its native packer `csrc/bitpack.cpp`, and the encode
-journal) and `utils` (`normalize`, `snr_db`, and `metrics`).  tests/test_torch_copies.py holds each equal to its
-original.  Nothing in this package imports JAX or `hsc_tpu`; a JAX
-package's dictionary crosses over through `params.dictionary_from_arrays`.
+journal) and `utils` (`normalize`, `find_grid_size`, `snr_db`, and
+`metrics`).  tests/test_torch_copies.py holds each equal to its original.
+Nothing in this package imports JAX or `hsc_tpu`; a JAX package's
+dictionary crosses over through `params.dictionary_from_arrays`.
 """
 
 from .config import CodecConfig, make_test_config

@@ -21,10 +21,10 @@ Design notes (TPU-first, not a port):
     update, which is what makes encode streams reproducible across backends
     (SURVEY.md §7 H2).
 
-The port's own copy of `hsc_tpu/dictionary.py` (without `visualize`, which
-needs matplotlib): the container bytes and the NumPy spec depend on this
-code, so it is copied verbatim, quirks included, and
-tests/test_torch_copies.py holds it equal to the original.
+The port's own copy of `hsc_tpu/dictionary.py`: the container bytes and
+the NumPy spec depend on this code, so it is copied verbatim, quirks
+included, and tests/test_torch_copies.py holds it equal to the original
+(`visualize` imports matplotlib only when it is called).
 """
 
 from __future__ import annotations
@@ -292,6 +292,35 @@ class MultilevelDictionary:
             cfg = CodecConfig.from_json(bytes(z["config"]).decode())
             dicts = [z[f"dict_{k}"] for k in range(cfg.num_levels)]
         return cls(cfg, dicts)
+
+    def visualize(self, path: str | None = None):
+        """Plot every level's signal-space atoms in a near-square grid.
+
+        Reference: `hsc/dataset.py :: MultilevelDictionary.visualize`.
+        Returns the matplotlib figure list (one per level)."""
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        from .utils import find_grid_size
+
+        figs = []
+        for k in range(self.config.num_levels):
+            reps = self.representations(k)[: self.config.counts[k]]
+            rows, cols = find_grid_size(reps.shape[0])
+            fig, axes = plt.subplots(rows, cols, figsize=(2 * cols, 1.5 * rows))
+            axes = np.atleast_1d(axes).ravel()
+            for i, ax in enumerate(axes):
+                if i < reps.shape[0]:
+                    ax.plot(reps[i], lw=0.8)
+                ax.set_xticks([])
+                ax.set_yticks([])
+            fig.suptitle(f"level {k} atoms (signal space)")
+            if path:
+                fig.savefig(f"{path}.level{k}.png", dpi=100)
+            figs.append(fig)
+        return figs
 
 
 def _compose_signal(filt: np.ndarray, lower_reps: np.ndarray, scale: int) -> np.ndarray:

@@ -171,6 +171,12 @@ class ConvolutionalMatchingPursuit(nn.Module):
         loop = mp_loop if self.backend == "cuda" else mp_encode_from_init_torch
         return loop(scores0, e0, scale, inv, self.params, **self.settings)
 
+    def compute_coefficients(self, x) -> EncodedBlock:
+        """Encode one block ``[N, C]`` (or ``[N]``): the batched encode at
+        B = 1, returned without the batch axis."""
+        enc = self.compute_coefficients_batch(torch.as_tensor(x, dtype=torch.float32)[None])
+        return EncodedBlock(*(v[0] for v in enc))
+
     def compute_coefficients_batch(self, xs) -> EncodedBlock:
         """Encode ``[B, N, C]`` (or ``[B, N]``) host or device blocks."""
         xs = torch.as_tensor(xs, dtype=torch.float32).to(self.device)

@@ -1,8 +1,9 @@
 """Small numeric helpers shared by host-side code.
 
-The port's own copy of `normalize` and `snr_db` from
-`hsc_tpu/utils/__init__.py` (the dictionary generator and the SNR readouts
-depend on them); tests/test_torch_copies.py holds them equal to the originals.
+The port's own copy of `normalize`, `find_grid_size` and `snr_db` from
+`hsc_tpu/utils/__init__.py` (the dictionary generator, its `visualize` and
+the SNR readouts depend on them); tests/test_torch_copies.py holds them
+equal to the originals.
 """
 
 from __future__ import annotations
@@ -22,6 +23,18 @@ def normalize(x: np.ndarray, axis=None, eps: float = 1e-12) -> np.ndarray:
     norm = np.sqrt(np.sum(np.square(x.astype(np.float64)), axis=axis, keepdims=axis is not None))
     norm = np.maximum(norm, eps)
     return (x / norm).astype(np.float32)
+
+
+def find_grid_size(n: int) -> tuple[int, int]:
+    """(rows, cols) of the squarest grid holding n panels.
+
+    Reference: `hsc/utils.py :: findGridSize` (figure layout helper).
+    """
+    if n <= 0:
+        return (0, 0)
+    cols = int(math.ceil(math.sqrt(n)))
+    rows = int(math.ceil(n / cols))
+    return rows, cols
 
 
 def snr_db(reference: np.ndarray, approx: np.ndarray) -> float:

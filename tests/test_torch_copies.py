@@ -4,14 +4,16 @@ their `hsc_tpu` originals on the CPU, with exact equality: the same configs,
 the same dictionary arrays, signals, synthesized audio and WAV files,
 container bytes (both entropies, the native and the NumPy packer) and
 oracle outputs on seeded inputs.  The verbatim copies (`signal`,
-`io.journal`, `utils.metrics`, `analysis.diagnostics`, and
-`analysis.rates` but for `rate_distortion_curve`) are also held to their
-originals' code, statement for statement."""
+`dictionary`, `io.journal`, `utils.metrics`, `utils.find_grid_size`,
+`analysis.diagnostics`, and `analysis.rates` but for
+`rate_distortion_curve`) are also held to their originals' code,
+statement for statement; `visualize` also draws the original's figures."""
 
 import ast
 import dataclasses
 import inspect
 import os
+import textwrap
 
 import numpy as np
 import pytest
@@ -287,15 +289,67 @@ def _code_without_docstring(module, skip=()) -> str:
     return ast.dump(ast.Module(body=body, type_ignores=[]))
 
 
-@pytest.mark.parametrize("pair", ["journal", "metrics", "signal", "diagnostics"])
+@pytest.mark.parametrize("pair", ["journal", "metrics", "signal", "diagnostics", "dictionary"])
 def test_verbatim_copies_hold_the_original_code(pair):
     tpu, port = {
         "journal": (tpu_journal, port_journal),
         "metrics": (hsc_tpu.utils.metrics, hsc_torch.utils.metrics),
         "signal": (hsc_tpu.signal, hsc_torch.signal),
         "diagnostics": (hsc_tpu.analysis.diagnostics, hsc_torch.analysis.diagnostics),
+        "dictionary": (hsc_tpu.dictionary, hsc_torch.dictionary),
     }[pair]
     assert _code_without_docstring(port) == _code_without_docstring(tpu)
+
+
+def _function_code(fn) -> str:
+    """One function's statements after its docstring, as an AST dump."""
+    (node,) = ast.parse(textwrap.dedent(inspect.getsource(fn))).body
+    body = node.body[1:] if isinstance(node.body[0], ast.Expr) else node.body
+    return ast.dump(ast.FunctionDef(**{**{f: getattr(node, f) for f in node._fields}, "body": body}))
+
+
+@pytest.mark.parametrize("name", ["visualize", "find_grid_size"])
+def test_visualize_and_grid_size_hold_the_original_code(name):
+    """`MultilevelDictionary.visualize` and `utils.find_grid_size` are the
+    originals statement for statement; `find_grid_size` also by value."""
+    tpu, port = {
+        "visualize": (hsc_tpu.dictionary.MultilevelDictionary.visualize,
+                      hsc_torch.dictionary.MultilevelDictionary.visualize),
+        "find_grid_size": (hsc_tpu.utils.find_grid_size, hsc_torch.utils.find_grid_size),
+    }[name]
+    assert _function_code(port) == _function_code(tpu)
+    if name == "find_grid_size":
+        assert [port(n) for n in range(-2, 300)] == [tpu(n) for n in range(-2, 300)]
+
+
+def test_visualize_plots_the_originals_lines(tmp_path):
+    """On one 2-level dictionary, the port's `visualize` draws the same
+    figures as the original: the same grid, and on every axis the same
+    line data (or none), title and files written."""
+    pytest.importorskip("matplotlib")
+    import matplotlib.pyplot as plt
+
+    tpu, port = _mld_pair(CONFIGS["cfg2"], 5)
+    figs = {}
+    for name, mld in (("tpu", tpu), ("port", port)):
+        figs[name] = mld.visualize(str(tmp_path / name))
+    try:
+        assert len(figs["port"]) == len(figs["tpu"]) == tpu.config.num_levels
+        for k, (fp, ft) in enumerate(zip(figs["port"], figs["tpu"])):
+            assert fp._suptitle.get_text() == ft._suptitle.get_text()
+            assert len(fp.axes) == len(ft.axes) > 0
+            for ap, at in zip(fp.axes, ft.axes):
+                lines_p, lines_t = ap.get_lines(), at.get_lines()
+                assert len(lines_p) == len(lines_t)
+                for lp, lt in zip(lines_p, lines_t):
+                    assert _same(lp.get_xydata(), lt.get_xydata())
+                    assert lp.get_linewidth() == lt.get_linewidth()
+                assert ap.get_position().bounds == at.get_position().bounds
+            assert sum(len(a.get_lines()) for a in fp.axes) == tpu.config.counts[k]
+            assert (tmp_path / f"port.level{k}.png").is_file() and (tmp_path / f"tpu.level{k}.png").is_file()
+    finally:
+        for fig in figs["port"] + figs["tpu"]:
+            plt.close(fig)
 
 
 def test_rates_copy_holds_the_original_code_but_the_device_curve():

@@ -99,12 +99,14 @@ def _imported_roots(path):
 
 @pytest.mark.parametrize("path", sorted(
     os.path.relpath(p, REPO)
-    for p in glob.glob(os.path.join(REPO, "hsc_torch", "**", "*.py"), recursive=True)
+    for pattern in (("hsc_torch", "**", "*.py"), ("scripts", "torch_*.py"))
+    for p in glob.glob(os.path.join(REPO, *pattern), recursive=True)
 ) + ["chip_smoke.py"])
 def test_no_jax_package_import_in_source(path):
-    """No file of the port and no line of chip_smoke.py imports `hsc_tpu`,
-    `jax`, `jaxlib`, `optax` or `orbax`, at module level or inside a
-    function."""
+    """No file of the port (`hsc_torch/pinned.py` among them), no script of
+    the port (`scripts/torch_*.py`) and no line of chip_smoke.py imports
+    `hsc_tpu`, `jax`, `jaxlib`, `optax` or `orbax`, at module level or
+    inside a function."""
     assert not _imported_roots(os.path.join(REPO, path)) & {"hsc_tpu", "jax", "jaxlib", "optax", "orbax"}
 
 

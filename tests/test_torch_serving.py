@@ -21,6 +21,7 @@ from hsc_tpu import SignalGenerator
 from hsc_tpu.models.coder import ConvolutionalSparseCoder as JaxLevelCoder
 from hsc_tpu.models.coder import HierarchicalConvolutionalSparseCoder as JaxCoder
 from hsc_tpu.ops.encode import encode_init_batched as jax_init
+from hsc_tpu.ops.encode import encode_init_jax
 from hsc_tpu.ops.encode import feature_map_jax
 from hsc_tpu.runtime import CorpusEncoder as JaxCorpusEncoder
 
@@ -32,6 +33,7 @@ from hsc_torch.io import append_index, pack_corpus, read_index
 from hsc_torch.models import ConvolutionalSparseCoder, HierarchicalConvolutionalSparseCoder
 from hsc_torch.params import dictionary_from_arrays
 from hsc_torch.runtime import CorpusEncoder
+from pinned import oracle_encode_pinned
 
 
 def _port(mld):
@@ -213,6 +215,56 @@ def test_single_level_coder_matches_jax(monkeypatch, mld1):
     assert _rows_equal(pc.reconstruct(got), jc.reconstruct(want))
     n = mld1.config.block_size + 77  # a longer output than the block
     assert _rows_equal(pc.reconstruct(got, n=n), jc.reconstruct(want, n=n))
+
+
+@pytest.mark.parametrize("shape", ["[N]", "[N, 1]"])
+def test_compute_coefficients_matches_jax(monkeypatch, mld1, shape):
+    """`ConvolutionalMatchingPursuit.compute_coefficients` of one block
+    against JAX's single-block `compute_coefficients` (`mp_encode_jax` on the
+    'jax' backend, ``[N]`` promoted to ``[N, 1]``), JAX's single-block init
+    `encode_init_jax` injected: the fixed-shape fields, the events up to
+    `count`, count, scale and energy0 bitwise JAX's.  energy_res is held to
+    the oracle on the same init, the spec: JAX's XLA loop is a few ulps off
+    it (ROADMAP Queue 3)."""
+    x = SignalGenerator(mld1, rates=4e-3).generate_signals(1, mld1.config.block_size, seed=37)[0]
+    x = x if shape == "[N]" else x[:, None]
+    want = JaxLevelCoder(mld1, 0, backend="jax").mp.compute_coefficients(x)
+
+    def init(xb, bank):
+        (xb,) = xb.numpy()  # one block, as compute_coefficients gives it
+        out = encode_init_jax(jnp.asarray(xb), jnp.asarray(bank.numpy()))
+        return tuple(torch.from_numpy(np.array(a)[None]) for a in out)
+
+    monkeypatch.setattr(hsc_torch.models.coder, "encode_init_batched", init)
+    got = ConvolutionalSparseCoder(_port(mld1), 0, device="cpu").mp.compute_coefficients(x)
+    got = {f: v.numpy() for f, v in got._asdict().items()}
+    want = {f: np.asarray(v) for f, v in want._asdict().items()}
+    n = int(want["count"])
+    assert n > 0 and int(got["count"]) == n
+    for f in ("positions", "atoms", "codes"):
+        assert got[f].shape == want[f].shape == (mld1.config.num_coefs[0],)
+        assert got[f].dtype == want[f].dtype and got[f][:n].tobytes() == want[f][:n].tobytes(), f
+    for f in ("count", "scale", "energy0", "energy_res"):
+        assert got[f].shape == want[f].shape == () and got[f].dtype == want[f].dtype, f
+    for f in ("count", "scale", "energy0"):
+        assert got[f].tobytes() == want[f].tobytes(), f
+    ref = oracle_encode_pinned(np.asarray(x, np.float32).reshape(-1, 1), mld1)
+    assert got["energy_res"] == np.float32(ref.energy_res) and ref.positions.shape[0] == n
+
+
+@pytest.mark.parametrize("shape", ["[N]", "[N, 1]"])
+def test_compute_coefficients_is_the_batch_at_row_0(mld1, shape):
+    """`ConvolutionalMatchingPursuit.compute_coefficients` of one block is
+    `compute_coefficients_batch` of that block alone, row 0, bitwise, with
+    no batch axis."""
+    x = SignalGenerator(mld1, rates=4e-3).generate_signals(1, mld1.config.block_size, seed=39)[0]
+    x = x if shape == "[N]" else x[:, None]
+    mp = ConvolutionalSparseCoder(_port(mld1), 0, device="cpu").mp
+    got = mp.compute_coefficients(x)
+    want = mp.compute_coefficients_batch(x[None])
+    assert int(got.count) > 0 and got.positions.shape == (mld1.config.num_coefs[0],)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape[1:] and torch.equal(g, w[0])
 
 
 def test_level_space_coder_at_level_1_matches_jax(monkeypatch, mld2):
