@@ -145,6 +145,18 @@ Then:
      at W = 33, 48 and 59; (c) its check 7, the greedy-loop kernel at W =
      160.  The gauntlet's other checks are phases above (ROADMAP Queue 1
      item 4 maps them).
+ 16. the experiment drivers through their `main`, each counted, into a
+     fresh directory: scripts/torch_run_experiment.py at the flat flagship
+     (64 blocks, learning and the budget sweep at their defaults) and at
+     its own 2-level defaults; scripts/torch_run_audio_experiment.py at
+     its defaults (16 s of synthesized music, the int8 level-1 init) and
+     on music and speech in integer mode at a corpus-wide 0.5 bits a
+     sample, their oracle R-D prefix cut to 1 block and budgets 16, 128.
+     Every run writes its files (no figures, and a line naming them, where
+     matplotlib is absent); the audio runs' re-encode and streaming-decode
+     assertions hold on the card; each container's first and last block
+     decode bitwise the oracle, and `backend='torch'` writes the same
+     container; all four kernels launch across the runs.
 
 Every phase is fatal on failure.  The NumPy spec it checks against is the
 port's own copy (`hsc_torch.oracle`, `hsc_torch.io`); the script fails if
@@ -153,9 +165,9 @@ last line it prints one JSON object with every kernel (launches on the
 counted hierarchical path, error against the plain version, its time as
 phases 6 and 10 time it, its device time, the plain version's, the bound
 computed from this run's inputs and, where one PyTorch call computes the
-same function, that call's time; `launches_learning`, `launches_mesh`
-and `launches_gates` count phases 13, 14 and 15), then the card's name
-and power limit.  The last line is one JSON object with the
+same function, that call's time; `launches_learning`, `launches_mesh`,
+`launches_gates` and `launches_experiments` count phases 13-16), then the
+card's name and power limit.  The last line is one JSON object with the
 device.
 """
 
@@ -1882,6 +1894,130 @@ def gates(dev) -> dict:
     return {"launches": total, "seconds": seconds}
 
 
+# phase 16: the experiment drivers, each run into a fresh directory.  (a) the
+# flat flagship at the main path's width and batch; (b) the experiment's own
+# 2-level defaults; (c) the audio driver's defaults (16 s of music) and (d)
+# 16 s each of music and speech in integer mode at a corpus-wide 0.5 bits a
+# sample.  The audio runs' NumPy-oracle R-D prefix is cut to 1 block and 2
+# budgets (PERF.md §4).
+AUDIO_RD = ["--rd-blocks", "1", "--budget-sweep", "16,128"]
+EXPERIMENTS = (
+    ("a", "torch_run_experiment", ["--counts", "64", "--scales", "32", "--num-coefs", "512", "--block-size", "16384",
+                                   "--num-select", "8", "--decode-mode", "integer", "--blocks", "64",
+                                   "--rate", "2e-3"]),
+    ("b", "torch_run_experiment", []),
+    ("c", "torch_run_audio_experiment", AUDIO_RD),
+    ("d", "torch_run_audio_experiment", [*AUDIO_RD, "--synth", "both", "--decode-mode", "integer",
+                                         "--target-bps", "0.5", "--rate-mode", "corpus"]),
+)
+EXPERIMENT_FILES = {
+    "torch_run_experiment": ("truth_dict.npz", "learned_dict.npz", "corpus.hsct", "metrics.jsonl", "report.json",
+                             "journal", "ckpt/trainer_state.npz"),
+    "torch_run_audio_experiment": ("corpus_in.wav", "learned_dict.npz", "corpus.hsct", "decoded.wav",
+                                   "metrics.jsonl", "report.json", "ckpt/trainer_state.npz"),
+}
+
+
+def experiment_corpus(args, out: str) -> np.ndarray:
+    """The corpus a driver run encoded, made again from its files."""
+    from hsc_torch import MultilevelDictionary, SignalGenerator
+    from hsc_torch.signal import load_wav_blocks
+
+    if hasattr(args, "synth"):
+        return load_wav_blocks(f"{out}/corpus_in.wav", args.block_size)
+    truth = MultilevelDictionary.load(f"{out}/truth_dict.npz")
+    return SignalGenerator(truth, rates=args.rate).generate_signals(args.blocks, args.block_size, seed=args.seed + 1)
+
+
+def experiments(dev, card) -> dict:
+    """Phase 16: `scripts/torch_run_experiment.py` and
+    `scripts/torch_run_audio_experiment.py` through their `main`, each run
+    counted.  Every run writes its files (its figures too where matplotlib
+    imports; else one line names them); the audio runs assert a byte-identical
+    re-encode and `decode_stream` == `decode` on the card; each container
+    decodes on the card bitwise the oracle's decode of its unpacked streams
+    on its first and last block, and equals the container `backend='torch'`
+    writes from the same corpus.  Across the runs every kernel launches.
+    Returns the launches of all runs and the phase's seconds."""
+    import importlib
+    import importlib.util
+    import io
+    import os
+    import shutil
+
+    from hsc_torch import MultilevelDictionary
+    from hsc_torch.io import unpack_corpus
+    from hsc_torch.oracle import hierarchical_decode
+    from hsc_torch.oracle.mp import mp_decode_integer, rep_quantize
+    from hsc_torch.runtime import CorpusEncoder
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "scripts"))
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    total = dict.fromkeys(kernel_counters(), 0)
+    for tag, script, extra in EXPERIMENTS:
+        driver = importlib.import_module(script)
+        out = os.path.join(root, "build", "chip_smoke", "experiments", tag)
+        shutil.rmtree(out, ignore_errors=True)  # a stale ckpt/ would resume the trainer
+        argv = ["--outdir", out, "--device", str(dev), *extra]
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with counted() as launches, contextlib.redirect_stdout(printed):
+                report = driver.main(argv)
+        finally:  # what the driver printed, also when it failed
+            for line in printed.getvalue().splitlines():
+                log(f"[16{tag}]   {line}")
+        wall = time.perf_counter() - t0
+        for k, v in launches.items():
+            total[k] += v
+        args = driver.parse_args(argv)
+        missing = [f for f in EXPERIMENT_FILES[script] if not os.path.exists(os.path.join(out, f))]
+        check(not missing, f"phase 16{tag}: {script} wrote no {missing}")
+        pngs = sorted(f for f in os.listdir(out) if f.endswith(".png"))
+        skip_line = "figures not written (matplotlib is not installed): " in printed.getvalue()
+        check(bool(pngs) == have_mpl != skip_line,
+              f"phase 16{tag}: matplotlib {'imports' if have_mpl else 'is absent'}, figures {pngs}, "
+              f"skip line printed: {skip_line}")
+
+        learned = MultilevelDictionary.load(os.path.join(out, "learned_dict.npz"))
+        with open(os.path.join(out, "corpus.hsct"), "rb") as f:
+            blob = f.read()
+        cfg, blocks = unpack_corpus(blob)
+        top = cfg.num_levels - 1
+        ends = (0, len(blocks) - 1)
+        rows = CorpusEncoder(learned, device=dev).decode_blocks(blob, list(ends))
+        rep_q, step = rep_quantize(learned.representations(top)[:, :, None], cfg.rep_bits)
+        for i, b in enumerate(ends):
+            (_, st), = blocks[b]
+            want = (mp_decode_integer(st, rep_q, step, cfg.block_size)[:, 0] if cfg.decode_mode == "integer"
+                    else hierarchical_decode(st, learned))
+            check(rows[i].tobytes() == want.tobytes(), f"phase 16{tag}: block {b} decodes != the oracle")
+        corpus = experiment_corpus(args, out)
+        plain = CorpusEncoder(learned, device=dev, backend="torch", target_bps=getattr(args, "target_bps", None),
+                              rate_mode=getattr(args, "rate_mode", "block"))
+        check(plain.encode(corpus) == blob, f"phase 16{tag}: backend='torch' container != backend='cuda' container")
+
+        enc = report["encode"]
+        steps = {"corpus": report["corpus"].get("seconds", report["corpus"].get("seconds_wall")),
+                 "learning": report["learning"]["seconds"], "encode": enc["seconds"]}
+        steps["R-D, analysis, figures"] = wall - sum(steps.values())
+        log(f"[16{tag}] {script} {' '.join(extra) or '(defaults)'}: {len(blocks)} blocks of {cfg.block_size}, "
+            f"levels {cfg.counts}, {cfg.decode_mode}, hier_init {cfg.hier_init}; launches {launches} "
+            f"(launched: {', '.join(k for k, v in launches.items() if v) or 'none'}); card {card}: wall {wall:.2f} s ("
+            + ", ".join(f"{k} {v:.2f} s" for k, v in steps.items())
+            + f"); ratio {enc['compression_ratio']:.2f}x, {enc['bits_per_sample']:.4f} bits/sample, mean SNR "
+            f"{enc['mean_snr_db']:.3f} dB"
+            + (f", corpus SNR {enc['corpus_snr_db']:.3f} dB, re-encode and decode_stream byte-identical"
+               if "corpus_snr_db" in enc else "")
+            + f"; blocks {ends} == oracle decode; container == backend='torch'")
+    check(all(v > 0 for v in total.values()), f"phase 16: a kernel never launched across the drivers: {total}")
+    seconds = time.perf_counter() - t_phase
+    log(f"[16] the experiment drivers took {seconds:.1f} s; launches {total}")
+    return {"launches": total, "seconds": seconds}
+
+
 def main() -> int:
     import torch
 
@@ -2104,6 +2240,7 @@ def main() -> int:
     learned = learning(dev, card, mld, xs)
     meshed = parallel(dev, card, mld, xs, blob, decoded)
     gated = gates(dev)
+    experimented = experiments(dev, card)
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "hsc_tpu", "optax", "orbax"))
     check(not loaded, f"JAX, optax, orbax or the JAX package was imported: {loaded}")
@@ -2120,10 +2257,11 @@ def main() -> int:
          "library_ms": None},
         *hier_kernels,
     ]
-    for row in kernels:  # phases 13's, 14's and 15's counts, beside the main path's
+    for row in kernels:  # phases 13's, 14's, 15's and 16's counts, beside the main path's
         row["launches_learning"] = learned["launches"][row["name"]]
         row["launches_mesh"] = meshed["launches"][row["name"]]
         row["launches_gates"] = gated["launches"][row["name"]]
+        row["launches_experiments"] = experimented["launches"][row["name"]]
     log(f"[end] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

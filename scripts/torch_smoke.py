@@ -7,10 +7,12 @@ The counterpart of scripts/smoke.py.  Checks:
      encode, int8 level-1 init included, every level likewise;
   2. the container pack -> unpack -> decode round trip in both decode
      modes, the decode bitwise the NumPy oracle;
-  3. chip_smoke.py and scripts/torch_fuzz_parity.py import, and the kernel
-     entry points chip_smoke.py calls resolve (`ops.mp_kernels.mp_loop`,
-     `ops.decode_integer_kernel`, `ops.decode_kernel`,
-     `ops.init_kernels.int8_init`, `_build`).
+  3. chip_smoke.py, scripts/torch_fuzz_parity.py and the experiment
+     drivers (scripts/torch_run_experiment.py,
+     scripts/torch_run_audio_experiment.py) import, and the entry points
+     chip_smoke.py calls resolve (the drivers' `main`,
+     `ops.mp_kernels.mp_loop`, `ops.decode_integer_kernel`,
+     `ops.decode_kernel`, `ops.init_kernels.int8_init`, `_build`).
 
     python scripts/torch_smoke.py
 
@@ -93,8 +95,10 @@ def main() -> int:
 
     # -- 3. the card scripts import and their kernel entry points resolve ---
     for mod, names in (
-        ("chip_smoke", ("main", "gates", "odd_width_int_decode")),
+        ("chip_smoke", ("main", "gates", "odd_width_int_decode", "experiments")),
         ("torch_fuzz_parity", ("run_shape", "run_hier_shape", "run_container_shape", "flat_parity")),
+        ("torch_run_experiment", ("main", "parse_args")),
+        ("torch_run_audio_experiment", ("main", "parse_args")),
         ("hsc_torch.ops.mp_kernels", ("mp_loop",)),
         ("hsc_torch.ops.decode_integer_kernel", ("mp_decode_integer_batch",)),
         ("hsc_torch.ops.decode_kernel", ("mp_decode_batch",)),
@@ -104,7 +108,7 @@ def main() -> int:
         m = importlib.import_module(mod)
         missing = [n for n in names if not callable(getattr(m, n, None))]
         check(not missing, f"{mod} lacks {missing}")
-    print(f"[smoke] 3/3 chip_smoke / fuzz / kernel entry points resolve ({time.perf_counter() - t_start:.1f}s)",
+    print(f"[smoke] 3/3 chip_smoke / fuzz / experiment drivers / kernel entry points resolve ({time.perf_counter() - t_start:.1f}s)",
           flush=True)
     print(f"[smoke] PASS in {time.perf_counter() - t_start:.1f}s", flush=True)
     return 0
