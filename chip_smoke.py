@@ -8,8 +8,9 @@ of width 32, 512 coefficients, num_select=8, integer decode) it:
 
   1. requires a CUDA device and prints the card, power limit and toolchain;
   2. builds the hand-written kernels from hsc_torch/csrc;
-  3. holds the init within 1e-5 of the exact (float64) correlation (TF32
-     off; the oracle's float32 einsum is logged beside it), and
+  3. holds the init within 1e-5 of the exact (float64) correlation (IEEE
+     float32, pinned at the conv; the oracle's float32 einsum is logged
+     beside it), and
      the greedy-loop kernel bitwise against its plain PyTorch version
      (num_select 8, 1 and 3, plus an SNR stop and an all-zero block) and two
      blocks per setting against the NumPy oracle with the port's init
@@ -157,6 +158,20 @@ Then:
      assertions hold on the card; each container's first and last block
      decode bitwise the oracle, and `backend='torch'` writes the same
      container; all four kernels launch across the runs.
+ 17. the measuring scripts through their `main`, each counted, their JSON
+     lines logged: scripts/torch_bench_serving.py at 2048 flat-flagship
+     blocks (seek, scan, reader and encode latency, stream MB/s, the
+     streamed rows byte-identical to the seeked ones), the decode marginal
+     in both modes, the encode stages at num_select 8, the hierarchy's
+     stages at the flagship hierarchy with the TF32 init A/B, and the mesh
+     overhead at 1, 2 and 4 shards of the card, flat encode and decode;
+     all four kernels launch across the runs.  17b: with the caller's TF32
+     flags on (`cudnn.conv.fp32_precision = 'tf32'`,
+     `set_float32_matmul_precision('high')`), a fresh CorpusEncoder writes
+     phase 5's container byte for byte and k-means at phase 13a's geometry
+     gives the IEEE run's centroids bit for bit, so does the init
+     correlation of a 64-channel map, the flags read as set afterwards,
+     and outside the pinned scope the same conv and product do move.
 
 Every phase is fatal on failure.  The NumPy spec it checks against is the
 port's own copy (`hsc_torch.oracle`, `hsc_torch.io`); the script fails if
@@ -166,7 +181,8 @@ counted hierarchical path, error against the plain version, its time as
 phases 6 and 10 time it, its device time, the plain version's, the bound
 computed from this run's inputs and, where one PyTorch call computes the
 same function, that call's time; `launches_learning`, `launches_mesh`,
-`launches_gates` and `launches_experiments` count phases 13-16), then the
+`launches_gates`, `launches_experiments` and `launches_measure` count
+phases 13-17), then the
 card's name and power limit.  The last line is one JSON object with the
 device.
 """
@@ -2018,6 +2034,127 @@ def experiments(dev, card) -> dict:
     return {"launches": total, "seconds": seconds}
 
 
+# phase 17: the measuring scripts through their `main`, each run counted.
+# Serving at 2048 blocks (a corpus past phase 5's 128), the decode marginal
+# in both modes, the encode stages at num_select 8, the hierarchy's stages at
+# the flagship hierarchy with the TF32 init A/B, the mesh overhead at 1, 2
+# and 4 shards of the one card, flat encode and decode.
+MEASURES = (
+    ("serving", "torch_bench_serving", ["--blocks", "2048"]),
+    ("decode", "torch_bench_decode_marginal", ["--mode", "both"]),
+    ("stages", "torch_bench_encode_stages", ["--ns", "8"]),
+    ("hier", "torch_bench_hier_stages", ["--config", "flagship", "--init-ab"]),
+    ("mesh", "torch_bench_scaling", ["--max-shards", "4"]),
+    ("mesh-decode", "torch_bench_scaling", ["--max-shards", "4", "--decode"]),
+)
+
+
+def measures(dev, card) -> dict:
+    """Phase 17: scripts/torch_bench_*.py through their `main` on the card,
+    in-process, each run counted and its JSON lines logged.  A failed
+    assertion in a script (the serving script's streamed rows against its
+    seeked rows) fails the phase.  Across the runs all four kernels launch.
+    Returns the launches of all runs, each run's output and the phase's
+    seconds."""
+    import importlib
+    import io
+    import os
+
+    import torch
+
+    t_phase = time.perf_counter()
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    total = dict.fromkeys(kernel_counters(), 0)
+    outputs = {}
+    for tag, script, extra in MEASURES:
+        argv = ["--device", str(dev), *extra]
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with counted() as launches, contextlib.redirect_stdout(printed):
+                outputs[tag] = importlib.import_module(script).main(argv)
+        finally:  # what the script printed, also when it failed
+            for line in printed.getvalue().splitlines():
+                log(f"[17 {tag}]   {line}")
+        for k, v in launches.items():
+            total[k] += v
+        log(f"[17 {tag}] {script} {' '.join(extra)}: launches {launches}; card {card}; "
+            f"{time.perf_counter() - t0:.1f} s")
+    shared = outputs["mesh"]["shards_share_one_device"]
+    check(shared == (torch.cuda.device_count() < 4), f"phase 17: shards_share_one_device is {shared}")
+    check(all(v > 0 for v in total.values()), f"phase 17: a kernel never launched across the scripts: {total}")
+    seconds = time.perf_counter() - t_phase
+    log(f"[17] the measuring scripts took {seconds:.1f} s; launches {total}")
+    return {"launches": total, "outputs": outputs, "seconds": seconds}
+
+
+def flag_flips(dev, mld, xs, blob) -> None:
+    """Phase 17b: the caller's TF32 flags move nothing.  With
+    `cudnn.conv.fp32_precision = 'tf32'` and
+    `torch.set_float32_matmul_precision('high')` set, a fresh
+    CorpusEncoder writes phase 5's container for the flat flagship's 128
+    blocks byte for byte, the init correlation of a 64-channel map (the
+    flagship level 1's width, as an f32 hand-off, SP or TP feed it) is
+    bitwise its IEEE value, and k-means at phase 13a's geometry gives the
+    centroids it gives under IEEE flags, bit for bit; afterwards the flags
+    read what was set.  The controls: outside `spec_numerics` the same
+    64-channel conv and the k-means product do move under TF32, so the
+    checks check something (cuDNN takes no TF32 path for the
+    single-channel level-0 conv: it is unmoved either way)."""
+    import torch
+    import torch.nn.functional as F
+
+    from hsc_torch.device import spec_numerics
+    from hsc_torch.learn import kmeans_refine_device
+    from hsc_torch.ops.correlate import correlate_bank_torch
+    from hsc_torch.runtime import CorpusEncoder
+
+    b = torch.backends
+    m, d, k, iters = KMEANS
+    rng = np.random.default_rng(0)
+    flat = torch.from_numpy(rng.standard_normal((m, d)).astype(np.float32)).to(dev)
+    cents = torch.from_numpy(rng.standard_normal((k, d)).astype(np.float32)).to(dev)
+    cents = cents / torch.linalg.vector_norm(cents, dim=1, keepdim=True)
+    fmap = torch.from_numpy(rng.standard_normal((4, 4096, 64)).astype(np.float32)).to(dev)
+    bank = torch.from_numpy(rng.standard_normal((96, 65, 64)).astype(np.float32)).to(dev)
+
+    def raw_conv():
+        return F.conv1d(fmap.transpose(1, 2).contiguous(), bank.permute(0, 2, 1).contiguous())
+
+    with spec_numerics():
+        want_c = kmeans_refine_device(flat, cents, iterations=iters)[0]
+        exact_conv, exact_mm = raw_conv(), flat @ cents.T
+    want_s = correlate_bank_torch(fmap, bank)
+    check(torch.equal(want_s, exact_conv), "the pinned correlation != the IEEE conv under default flags")
+    legacy, conv = torch.get_float32_matmul_precision(), b.cudnn.conv.fp32_precision
+    try:
+        b.cudnn.conv.fp32_precision = "tf32"
+        torch.set_float32_matmul_precision("high")
+        flags = (b.cudnn.conv.fp32_precision, b.cuda.matmul.fp32_precision, b.cudnn.deterministic,
+                 b.cudnn.benchmark)
+        moved = {"conv": float((raw_conv() - exact_conv).abs().max()),
+                 "matmul": float((flat @ cents.T - exact_mm).abs().max())}
+        got_blob = CorpusEncoder(mld, device=dev).encode(xs)
+        got_s = correlate_bank_torch(fmap, bank)
+        got_c = kmeans_refine_device(flat, cents, iterations=iters)[0]
+        torch.cuda.synchronize()
+        after = (b.cudnn.conv.fp32_precision, b.cuda.matmul.fp32_precision, b.cudnn.deterministic,
+                 b.cudnn.benchmark)
+    finally:
+        torch.set_float32_matmul_precision(legacy)
+        b.cudnn.conv.fp32_precision = conv
+    check(all(v > 0 for v in moved.values()), f"phase 17b: an unpinned op did not move under TF32: {moved}")
+    check(got_blob == blob, "phase 17b: the container moved under the TF32 flags")
+    check(torch.equal(got_s, want_s), "phase 17b: the 64-channel init correlation moved under the TF32 flags")
+    check(torch.equal(got_c, want_c), "phase 17b: k-means centroids moved under the TF32 flags")
+    check(after == flags and flags[:2] == ("tf32", "tf32"), f"phase 17b: flags {flags} read {after} after the run")
+    log(f"[17b] TF32 flags (cudnn.conv {flags[0]}, cuda.matmul {flags[1]}): {len(xs)} flat-flagship blocks -> "
+        f"phase 5's container byte for byte; a 64-channel init correlation (4 x 4096 x 64 against 96 x 65) and "
+        f"k-means ({m} x {d}, {k} centroids, {iters} iterations) bitwise the IEEE runs; flags unchanged after "
+        f"({after}); controls, outside the pinned scope: the conv off by {moved['conv']:.3g}, the k-means "
+        f"product by {moved['matmul']:.3g}")
+
+
 def main() -> int:
     import torch
 
@@ -2241,6 +2378,8 @@ def main() -> int:
     meshed = parallel(dev, card, mld, xs, blob, decoded)
     gated = gates(dev)
     experimented = experiments(dev, card)
+    measured = measures(dev, card)
+    flag_flips(dev, mld, xs, blob)
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "hsc_tpu", "optax", "orbax"))
     check(not loaded, f"JAX, optax, orbax or the JAX package was imported: {loaded}")
@@ -2257,11 +2396,12 @@ def main() -> int:
          "library_ms": None},
         *hier_kernels,
     ]
-    for row in kernels:  # phases 13's, 14's, 15's and 16's counts, beside the main path's
+    for row in kernels:  # phases 13's to 17's counts, beside the main path's
         row["launches_learning"] = learned["launches"][row["name"]]
         row["launches_mesh"] = meshed["launches"][row["name"]]
         row["launches_gates"] = gated["launches"][row["name"]]
         row["launches_experiments"] = experimented["launches"][row["name"]]
+        row["launches_measure"] = measured["launches"][row["name"]]
     log(f"[end] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

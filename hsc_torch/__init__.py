@@ -3,7 +3,8 @@
 The JAX package `hsc_tpu` is the reference; this package is its counterpart
 for an NVIDIA Hopper card and mirrors its layout and names:
 
-  device        — explicit device selection and the spec's f32 numerics
+  device        — explicit device selection, and `spec_numerics`, which
+                  pins the spec's f32 numerics at each op that needs them
   params        — one level's bank, Gram, decode and int8 init tables
   ops           — init correlation, level hand-off maps, greedy loop
                   (`mp_kernels`), int8 level >= 1 init (`init_kernels`),
@@ -33,8 +34,8 @@ for an NVIDIA Hopper card and mirrors its layout and names:
 The port keeps its own copies of the JAX package's NumPy modules, verbatim:
 `config`, `dictionary`, `signal`, `oracle` (the NumPy spec), `io` (the
 container format, its native packer `csrc/bitpack.cpp`, and the encode
-journal) and `utils` (`normalize`, `find_grid_size`, `snr_db`, and
-`metrics`).  tests/test_torch_copies.py holds each equal to its original.
+journal) and `utils` (`normalize`, `overlap_add`, `overlap_replace`,
+`find_grid_size`, `snr_db`, `Timer`, and `metrics`).  tests/test_torch_copies.py holds each equal to its original.
 Nothing in this package imports JAX or `hsc_tpu`; a JAX package's
 dictionary crosses over through `params.dictionary_from_arrays`.
 """

@@ -19,8 +19,9 @@ Torch tensors on the learner's device, the rest:
     make the sums depend on the order the card adds them in);
   * `kmeans_refine_device` runs every iteration on the device with no host
     sync: no `.item()`, no test of a device value on the host; the
-    objectives are stacked and copied back once.  TF32 stays off
-    (`device.resolve_device`), so the products are full float32.
+    objectives are stacked and copied back once.  Both products of
+    `kmeans_assign_update` run under `device.spec_numerics`, so they are full
+    float32 whatever flags the caller has set (no TF32, no bf16).
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import resolve_device, spec_numerics
 
 
 class KMeansStats(NamedTuple):
@@ -97,14 +98,15 @@ def kmeans_assign_update(windows: torch.Tensor, centroids: torch.Tensor) -> KMea
     Polarity-invariant: window m contributes ``sign(score) * window`` to its
     best-|score| centroid (the lowest such centroid on a tie).
     """
-    scores = windows @ centroids.T  # [M, K]
-    best = scores.abs().argmax(dim=1)  # [M], the first maximum
-    bestval = scores.gather(1, best[:, None])[:, 0]
-    sign = torch.where(bestval >= 0, 1.0, -1.0)
-    k = centroids.shape[0]
-    onehot = (best[:, None] == torch.arange(k, device=best.device)).to(windows.dtype)
-    onehot = onehot * sign[:, None]  # [M, K] signed
-    sums = onehot.T @ windows
+    with spec_numerics():
+        scores = windows @ centroids.T  # [M, K]
+        best = scores.abs().argmax(dim=1)  # [M], the first maximum
+        bestval = scores.gather(1, best[:, None])[:, 0]
+        sign = torch.where(bestval >= 0, 1.0, -1.0)
+        k = centroids.shape[0]
+        onehot = (best[:, None] == torch.arange(k, device=best.device)).to(windows.dtype)
+        onehot = onehot * sign[:, None]  # [M, K] signed
+        sums = onehot.T @ windows
     counts = onehot.abs().sum(dim=0)
     best_abs = bestval.abs()
     return KMeansStats(sums=sums, counts=counts, objective=best_abs.sum(), best_abs=best_abs)

@@ -14,9 +14,10 @@ is the *online* form:
 The reconstruction is `_OverlapAdd`: its forward is the ordered decode
 (`ops.decode_kernel.mp_decode_batch`, the CUDA kernel on a card), and its
 backward gathers each live event's window of the incoming gradient and sums
-them per atom with one signed one-hot product, so two runs give the same
-gradient bit for bit.  With a `mesh`, the minibatch encode stays unsharded
-(as in the JAX package); each shard computes the loss and gradient of its
+them per atom with one signed one-hot product in IEEE float32
+(`device.spec_numerics`), so two runs give the same gradient bit for bit.
+With a `mesh`, the minibatch encode stays unsharded (as in the JAX
+package); each shard computes the loss and gradient of its
 blocks on its device, the shards' losses and gradients are summed in shard
 order, and one optimizer step follows.  optax's Adam becomes
 `torch.optim.Adam` with the same defaults (b1 0.9, b2 0.999, eps 1e-8); the
@@ -31,7 +32,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import resolve_device, spec_numerics
 from ..dictionary import bank_gram
 from ..models.coder import ConvolutionalMatchingPursuit
 from ..ops.decode import _live_events
@@ -65,7 +66,10 @@ class _OverlapAdd(torch.autograd.Function):
         atm = torch.where(live, atoms.long(), 0).reshape(-1)
         onehot = (atm[:, None] == torch.arange(k, device=grad.device)).to(grad.dtype)
         weighted = onehot * amp.reshape(-1, 1)  # [B*M, K]
-        dbank = weighted.T @ windows.reshape(b * m, w * c)
+        # pinned at the op, whoever calls backward() and on whichever
+        # thread autograd runs it
+        with spec_numerics():
+            dbank = weighted.T @ windows.reshape(b * m, w * c)
         return dbank.reshape(k, w, c), None, None, None, None, None, None
 
 

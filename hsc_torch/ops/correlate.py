@@ -2,16 +2,18 @@
 
 Counterpart of `hsc_tpu.ops.correlate.correlate_bank_jax` (an XLA conv at
 `Precision.HIGHEST`, outside any Pallas kernel).  Here it is `F.conv1d` in
-float32 — TF32 is off (`device.resolve_device`) because the scores feed the
-quantizer directly.  The reduction order is the backend's choice, so the
-scores agree with JAX only to a tolerance; everything after the init is
-bitwise (README "Determinism contract").
+IEEE float32 under `device.spec_numerics`, whatever flags the caller has
+set, because the scores feed the quantizer directly.  The reduction order
+is the backend's choice, so the scores agree with JAX only to a tolerance;
+everything after the init is bitwise (README "Determinism contract").
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ..device import spec_numerics
 
 
 def correlate_bank_torch(x: torch.Tensor, bank: torch.Tensor) -> torch.Tensor:
@@ -25,4 +27,6 @@ def correlate_bank_torch(x: torch.Tensor, bank: torch.Tensor) -> torch.Tensor:
     PyTorch reads as channels-last, and the conv would then return the
     scores channels-last too."""
     rows = torch.contiguous_format
-    return F.conv1d(x.transpose(1, 2).clone(memory_format=rows), bank.permute(0, 2, 1).clone(memory_format=rows))
+    lhs, rhs = x.transpose(1, 2).clone(memory_format=rows), bank.permute(0, 2, 1).clone(memory_format=rows)
+    with spec_numerics():
+        return F.conv1d(lhs, rhs)

@@ -5,6 +5,7 @@ the same dictionary arrays, signals, synthesized audio and WAV files,
 container bytes (both entropies, the native and the NumPy packer) and
 oracle outputs on seeded inputs.  The verbatim copies (`signal`,
 `dictionary`, `io.journal`, `utils.metrics`, `utils.find_grid_size`,
+`utils.overlap_add`, `utils.overlap_replace`, `utils.Timer`,
 `analysis.diagnostics`, and `analysis.rates` but for
 `rate_distortion_curve`) are also held to their originals' code,
 statement for statement; `visualize` also draws the original's figures."""
@@ -14,6 +15,7 @@ import dataclasses
 import inspect
 import os
 import textwrap
+import time
 
 import numpy as np
 import pytest
@@ -302,24 +304,50 @@ def test_verbatim_copies_hold_the_original_code(pair):
 
 
 def _function_code(fn) -> str:
-    """One function's statements after its docstring, as an AST dump."""
+    """One function's (or class's) statements after its docstring, as an AST
+    dump."""
     (node,) = ast.parse(textwrap.dedent(inspect.getsource(fn))).body
     body = node.body[1:] if isinstance(node.body[0], ast.Expr) else node.body
-    return ast.dump(ast.FunctionDef(**{**{f: getattr(node, f) for f in node._fields}, "body": body}))
+    return ast.dump(type(node)(**{**{f: getattr(node, f) for f in node._fields}, "body": body}))
 
 
-@pytest.mark.parametrize("name", ["visualize", "find_grid_size"])
+@pytest.mark.parametrize("name", ["visualize", "find_grid_size", "overlap_add", "overlap_replace", "Timer"])
 def test_visualize_and_grid_size_hold_the_original_code(name):
-    """`MultilevelDictionary.visualize` and `utils.find_grid_size` are the
-    originals statement for statement; `find_grid_size` also by value."""
+    """`MultilevelDictionary.visualize` and `utils.find_grid_size`,
+    `overlap_add`, `overlap_replace` and `Timer` are the originals statement
+    for statement; `find_grid_size` also by value."""
     tpu, port = {
         "visualize": (hsc_tpu.dictionary.MultilevelDictionary.visualize,
                       hsc_torch.dictionary.MultilevelDictionary.visualize),
-        "find_grid_size": (hsc_tpu.utils.find_grid_size, hsc_torch.utils.find_grid_size),
+        **{n: (getattr(hsc_tpu.utils, n), getattr(hsc_torch.utils, n))
+           for n in ("find_grid_size", "overlap_add", "overlap_replace", "Timer")},
     }[name]
     assert _function_code(port) == _function_code(tpu)
     if name == "find_grid_size":
         assert [port(n) for n in range(-2, 300)] == [tpu(n) for n in range(-2, 300)]
+
+
+def test_overlap_helpers_and_timer_behave_as_the_originals():
+    """tests/test_utils.py's overlap case through both packages, then random
+    multichannel patches at every offset, byte for byte; `Timer` measures a
+    sleep on both."""
+    sigs = {}
+    for name, u in (("tpu", hsc_tpu.utils), ("port", hsc_torch.utils)):
+        sig = np.zeros(16, dtype=np.float32)
+        u.overlap_add(sig, np.ones(4, dtype=np.float32), 3)
+        assert np.array_equal(np.nonzero(sig)[0], [3, 4, 5, 6])
+        u.overlap_replace(sig, np.full(4, 2.0, dtype=np.float32), 5)
+        assert sig[5] == 2.0 and sig[4] == 1.0
+        rng = np.random.default_rng(3)
+        multi = rng.standard_normal((40, 3)).astype(np.float32)
+        for t in range(0, 33):
+            u.overlap_add(multi, rng.standard_normal((7, 3)).astype(np.float32), t)
+            u.overlap_replace(multi, rng.standard_normal((2, 3)).astype(np.float32), t + 5)
+        sigs[name] = (sig.tobytes(), multi.tobytes())
+        with u.Timer() as tm:
+            time.sleep(0.01)
+        assert 0.01 <= tm.elapsed < 1.0
+    assert sigs["port"] == sigs["tpu"]
 
 
 def test_visualize_plots_the_originals_lines(tmp_path):

@@ -736,3 +736,49 @@ def test_init_is_batch_invariant(device):
             half[:, 0] += tree[:, m - 1]
         tree = half
     assert block_energy(x[:3]).cpu().numpy().tobytes() == tree[:, 0].tobytes()
+
+
+def test_tf32_flags_change_no_output(device):
+    """The caller's TF32 flags (`cudnn.conv.fp32_precision = 'tf32'` and
+    `torch.set_float32_matmul_precision('high')`, set after the codec is
+    built) move neither the container bytes of a fresh encode, nor the init
+    correlation of a 64-channel map (cuDNN takes TF32 there; it takes none
+    for the single-channel level-0 conv), nor k-means' centroids, and read
+    what the caller set afterwards: the init conv and the k-means products
+    run under `device.spec_numerics`.  On the CPU the TF32 flags act on
+    nothing; tests/test_torch_numerics.py flips the oneDNN ones there."""
+    from hsc_torch.learn import kmeans_refine_device
+    from hsc_torch.ops.correlate import correlate_bank_torch
+
+    b = torch.backends
+    cfg = make_test_config(counts=(16,), scales=(32,), block_size=2048, num_coefs=(64,), num_select=4)
+    mld = MultilevelDictionary.generate(cfg, seed=7)
+    xs = SignalGenerator(mld, rates=2e-2).generate_signals(8, cfg.block_size, seed=3)
+    rng = np.random.default_rng(4)
+    flat = torch.from_numpy(rng.standard_normal((4096, 32)).astype(np.float32)).to(device)
+    cents0 = flat[:16] / torch.linalg.vector_norm(flat[:16], dim=1, keepdim=True)
+
+    fmap = torch.from_numpy(rng.standard_normal((2, 1024, 64)).astype(np.float32)).to(device)
+    fbank = torch.from_numpy(rng.standard_normal((24, 65, 64)).astype(np.float32)).to(device)
+
+    def run(codec):
+        return (codec.encode(xs), correlate_bank_torch(fmap, fbank).cpu(),
+                kmeans_refine_device(flat, cents0, iterations=5)[0].cpu())
+
+    codec = CorpusEncoder(mld, device=device)
+    want_blob, want_s, want_c = run(codec)
+    legacy, conv = torch.get_float32_matmul_precision(), b.cudnn.conv.fp32_precision
+    try:
+        b.cudnn.conv.fp32_precision = "tf32"
+        torch.set_float32_matmul_precision("high")
+        flags = (b.cudnn.conv.fp32_precision, b.cuda.matmul.fp32_precision, b.mkldnn.matmul.fp32_precision)
+        for c in (codec, CorpusEncoder(mld, device=device)):
+            blob, scores, cents = run(c)
+            assert blob == want_blob
+            assert torch.equal(scores, want_s)
+            assert torch.equal(cents, want_c)
+            assert (b.cudnn.conv.fp32_precision, b.cuda.matmul.fp32_precision,
+                    b.mkldnn.matmul.fp32_precision) == flags == ("tf32", "tf32", "tf32")
+    finally:
+        torch.set_float32_matmul_precision(legacy)
+        b.cudnn.conv.fp32_precision = conv
