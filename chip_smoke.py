@@ -172,6 +172,16 @@ Then:
      gives the IEEE run's centroids bit for bit, so does the init
      correlation of a 64-channel map, the flags read as set afterwards,
      and outside the pinned scope the same conv and product do move.
+ 18. scripts/torch_bench.py, the counterpart of `bench.py`, through its
+     `main` at bench.py's full sizes, counted, every line it prints
+     logged (its JSON line among them): the oracle on one block, the flat
+     flagship's 16 batches of 64 blocks at num_select 1 and 8, the
+     integer decode of 16384 blocks and the ordered decode of 2048, the
+     2-level hierarchies on 32 x 64 and 16 x 64 blocks, k-means at 65536 x
+     32 with 64 centroids and 20 iterations; each cell's first batch
+     bitwise the plain version before its timed runs, every timed run's
+     counts those of its warm-up; all four kernels launch, and the
+     bench's own launch counts are the phase's.
 
 Every phase is fatal on failure.  The NumPy spec it checks against is the
 port's own copy (`hsc_torch.oracle`, `hsc_torch.io`); the script fails if
@@ -181,8 +191,8 @@ counted hierarchical path, error against the plain version, its time as
 phases 6 and 10 time it, its device time, the plain version's, the bound
 computed from this run's inputs and, where one PyTorch call computes the
 same function, that call's time; `launches_learning`, `launches_mesh`,
-`launches_gates`, `launches_experiments` and `launches_measure` count
-phases 13-17), then the
+`launches_gates`, `launches_experiments`, `launches_measure` and
+`launches_bench` count phases 13-18), then the
 card's name and power limit.  The last line is one JSON object with the
 device.
 """
@@ -2088,6 +2098,34 @@ def measures(dev, card) -> dict:
     return {"launches": total, "outputs": outputs, "seconds": seconds}
 
 
+def bench(dev, card) -> dict:
+    """Phase 18: scripts/torch_bench.py through its `main` on the card at
+    bench.py's sizes, in-process and counted, every line it prints
+    (stdout and stderr) logged.  A failed check in the bench fails the
+    phase.  Returns the launches, the bench's JSON line and the phase's
+    seconds."""
+    import importlib
+    import io
+    import os
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    torch_bench = importlib.import_module("torch_bench")
+    log(f"[18] bench.py's cells: {json.dumps(torch_bench.CARD)}")
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with counted() as launches, contextlib.redirect_stdout(printed), contextlib.redirect_stderr(printed):
+            out = torch_bench.main(["--device", str(dev)])
+    finally:  # what the bench printed, also when it failed
+        for line in printed.getvalue().splitlines():
+            log(f"[18]   {line}")
+    seconds = time.perf_counter() - t0
+    check(out["launches"] == launches, f"phase 18: the bench counted {out['launches']}, the phase {launches}")
+    check(all(v > 0 for v in launches.values()), f"phase 18: a kernel never launched in the bench: {launches}")
+    log(f"[18] torch_bench.py: launches {launches}; card {card}; {seconds:.1f} s")
+    return {"launches": launches, "output": out, "seconds": seconds}
+
+
 def flag_flips(dev, mld, xs, blob) -> None:
     """Phase 17b: the caller's TF32 flags move nothing.  With
     `cudnn.conv.fp32_precision = 'tf32'` and
@@ -2380,6 +2418,7 @@ def main() -> int:
     experimented = experiments(dev, card)
     measured = measures(dev, card)
     flag_flips(dev, mld, xs, blob)
+    benched = bench(dev, card)
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "hsc_tpu", "optax", "orbax"))
     check(not loaded, f"JAX, optax, orbax or the JAX package was imported: {loaded}")
@@ -2396,12 +2435,13 @@ def main() -> int:
          "library_ms": None},
         *hier_kernels,
     ]
-    for row in kernels:  # phases 13's to 17's counts, beside the main path's
+    for row in kernels:  # phases 13's to 18's counts, beside the main path's
         row["launches_learning"] = learned["launches"][row["name"]]
         row["launches_mesh"] = meshed["launches"][row["name"]]
         row["launches_gates"] = gated["launches"][row["name"]]
         row["launches_experiments"] = experimented["launches"][row["name"]]
         row["launches_measure"] = measured["launches"][row["name"]]
+        row["launches_bench"] = benched["launches"][row["name"]]
     log(f"[end] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

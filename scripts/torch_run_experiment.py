@@ -24,7 +24,6 @@ Examples:
 from __future__ import annotations
 
 import argparse
-import contextlib
 import importlib.util
 import json
 import os
@@ -36,6 +35,7 @@ import numpy as np
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
 from hsc_torch.cli import _device  # noqa: E402
+from hsc_torch.utils.profiling import profile_region  # noqa: E402
 
 
 def parse_args(argv=None):
@@ -99,25 +99,6 @@ class Figures:
         if self.skipped:
             print(f"figures not written (matplotlib is not installed): "
                   f"{', '.join(self.skipped)}", flush=True)
-
-
-@contextlib.contextmanager
-def profile_region(profile_dir: str | None, device):
-    """A `torch.profiler` trace of the region (the card's kernels too on a
-    CUDA device), written to ``<profile_dir>/encode.trace.json``; a no-op
-    when `profile_dir` is None."""
-    if profile_dir is None:
-        yield
-        return
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        yield
-    os.makedirs(profile_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(profile_dir, "encode.trace.json"))
 
 
 def main(argv=None) -> dict:
@@ -186,7 +167,7 @@ def main(argv=None) -> dict:
         journal_dir=os.path.join(args.outdir, "journal"),
         metrics_path=os.path.join(args.outdir, "metrics.jsonl"),
     )
-    with profile_region(args.profile_dir, dev):
+    with profile_region(args.profile_dir, dev, "encode.trace.json"):
         blob = encoder.encode(corpus)
     with open(os.path.join(args.outdir, "corpus.hsct"), "wb") as f:
         f.write(blob)

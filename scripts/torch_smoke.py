@@ -9,9 +9,10 @@ The counterpart of scripts/smoke.py.  Checks:
      modes, the decode bitwise the NumPy oracle;
   3. chip_smoke.py, scripts/torch_fuzz_parity.py, the experiment
      drivers (scripts/torch_run_experiment.py,
-     scripts/torch_run_audio_experiment.py) and the measuring scripts
-     (scripts/torch_bench_*.py) import, and the entry points chip_smoke.py
-     calls resolve (the drivers' and the measuring scripts' `main`,
+     scripts/torch_run_audio_experiment.py), the measuring scripts
+     (scripts/torch_bench_*.py) and the bench (scripts/torch_bench.py)
+     import, and the entry points chip_smoke.py calls resolve (the
+     drivers', the measuring scripts' and the bench's `main`,
      `ops.mp_kernels.mp_loop`, `ops.decode_integer_kernel`,
      `ops.decode_kernel`, `ops.init_kernels.int8_init`, `_build`).
 
@@ -96,12 +97,14 @@ def main() -> int:
 
     # -- 3. the card scripts import and their kernel entry points resolve ---
     for mod, names in (
-        ("chip_smoke", ("main", "gates", "odd_width_int_decode", "experiments", "measures", "flag_flips")),
+        ("chip_smoke", ("main", "gates", "odd_width_int_decode", "experiments", "measures", "flag_flips",
+                        "bench")),
         ("torch_fuzz_parity", ("run_shape", "run_hier_shape", "run_container_shape", "flat_parity")),
         ("torch_run_experiment", ("main", "parse_args")),
         ("torch_run_audio_experiment", ("main", "parse_args")),
         *((f"torch_bench_{name}", ("main", "parse_args", "measure"))
           for name in ("serving", "decode_marginal", "encode_stages", "hier_stages", "scaling")),
+        ("torch_bench", ("main", "parse_args", "flat_cells", "decode_cells", "hier_cell", "kmeans_cell")),
         ("hsc_torch.ops.mp_kernels", ("mp_loop",)),
         ("hsc_torch.ops.decode_integer_kernel", ("mp_decode_integer_batch",)),
         ("hsc_torch.ops.decode_kernel", ("mp_decode_batch",)),
@@ -111,7 +114,7 @@ def main() -> int:
         m = importlib.import_module(mod)
         missing = [n for n in names if not callable(getattr(m, n, None))]
         check(not missing, f"{mod} lacks {missing}")
-    print(f"[smoke] 3/3 chip_smoke / fuzz / experiment drivers / measuring scripts / kernel entry points resolve ({time.perf_counter() - t_start:.1f}s)",
+    print(f"[smoke] 3/3 chip_smoke / fuzz / experiment drivers / measuring scripts / bench / kernel entry points resolve ({time.perf_counter() - t_start:.1f}s)",
           flush=True)
     print(f"[smoke] PASS in {time.perf_counter() - t_start:.1f}s", flush=True)
     return 0
