@@ -182,6 +182,18 @@ Then:
      bitwise the plain version before its timed runs, every timed run's
      counts those of its warm-up; all four kernels launch, and the
      bench's own launch counts are the phase's.
+ 19. the transfers: scripts/torch_transfer_ab.py on this tree and on its
+     parent (`build/parent` where a caller unpacked it with `git archive
+     HEAD~1`, else unpacked here from the checkout's history; without
+     either only this tree runs), in turns (P C C P), each a subprocess:
+     at the flat flagship and the flagship hierarchy (128 blocks each)
+     `CorpusEncoder.encode` and `.decode`, 3 repeats, their containers and
+     rows the same in every run, bitwise the serial path's and the same
+     on both trees; on this tree no synchronizing CUDA call (torch's sync
+     debug mode) from `ops/pipeline.py`, `models/coder.py` or
+     `runtime.py`, every host copy in the profiles "Pinned"; the
+     synchronizing calls and event waits by file:line, the host-wall
+     MB/s and the device's idle share of both trees logged side by side.
 
 Every phase is fatal on failure.  The NumPy spec it checks against is the
 port's own copy (`hsc_torch.oracle`, `hsc_torch.io`); the script fails if
@@ -2126,6 +2138,85 @@ def bench(dev, card) -> dict:
     return {"launches": launches, "output": out, "seconds": seconds}
 
 
+# phase 19: the trees' turns (each a subprocess of scripts/torch_transfer_ab.py)
+TRANSFER_TURNS = ("parent", "tree", "tree", "parent")
+
+
+def parent_tree() -> str | None:
+    """The parent tree's root: `build/parent` where a caller unpacked it,
+    else `git archive HEAD~1` unpacked there when the checkout has its
+    history; None when neither is at hand."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(here, "build", "parent")
+    if os.path.isfile(os.path.join(path, "hsc_torch", "__init__.py")):
+        return path
+    if not os.path.isdir(os.path.join(here, ".git")):
+        return None
+    archive = subprocess.run(["git", "-C", here, "archive", "HEAD~1"], capture_output=True, timeout=60)
+    if archive.returncode != 0:  # e.g. a clone of depth 1
+        log(f"[19] git archive HEAD~1 failed: {archive.stderr.decode().strip()}")
+        return None
+    os.makedirs(path, exist_ok=True)
+    subprocess.run(["tar", "-x", "-C", path], input=archive.stdout, check=True, timeout=60)
+    return path
+
+
+def transfers(card) -> None:
+    """Phase 19: the corpus encode and decode of this tree against its
+    parent's, through scripts/torch_transfer_ab.py (one subprocess per
+    turn, its lines logged).  Fails on a run whose bytes differ from the
+    serial path's, from another run's or from the other tree's; on a
+    synchronizing call from the batch loops' files on this tree; on a
+    pageable host copy in this tree's profiles."""
+    import os
+
+    import torch
+
+    torch.cuda.empty_cache()  # the subprocesses share the card
+    t0 = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    parent = parent_tree()
+    if parent is None:
+        log("[19] no parent tree (no build/parent, no git history): this tree alone")
+    runs = {"parent": [], "tree": []}
+    for label in TRANSFER_TURNS if parent else ("tree",):
+        cmd = [sys.executable, os.path.join(here, "scripts", "torch_transfer_ab.py"), "--label", label]
+        if label == "parent":
+            cmd += ["--root", parent]
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        lines = proc.stdout.splitlines()
+        for line in lines[:-1] if proc.returncode == 0 else lines:
+            log(f"[19] {line}")
+        check(proc.returncode == 0, f"phase 19: torch_transfer_ab.py --label {label} exited "
+                                    f"{proc.returncode}: {proc.stderr[-3000:]}")
+        runs[label].append(json.loads(lines[-1]))
+    for name in ("flat", "hier"):
+        cells = {label: [r[name] for r in rs] for label, rs in runs.items() if rs}
+        got = {(c["container_sha256"], c["rows_sha256"]) for cs in cells.values() for c in cs}
+        check(len(got) == 1, f"phase 19 {name}: containers or rows differ between runs or trees: {got}")
+        for c in cells["tree"]:
+            check(c["loop_file_syncs"] == 0, f"phase 19 {name}: this tree synchronized in the batch loops: "
+                                             f"{c['encode_syncs']} {c['decode_syncs']}")
+            for what, p in c["profile"].items():
+                host = [k for k in p["copies"] if "HtoD" in k or "DtoH" in k]
+                check(host and all("Pinned" in k for k in host),
+                      f"phase 19 {name} {what}: host copies not all pinned: {p['copies']}")
+        for label, cs in cells.items():
+            enc = [v for c in cs for v in c["encode_mb_s"]]
+            dec = [v for c in cs for v in c["decode_mb_s"]]
+            idle = [round(100 * c["profile"][w]["idle"], 1) for c in cs for w in ("encode", "decode")]
+            syncs = [sum(c[f"{w}_syncs"].values()) for c in cs for w in ("encode", "decode")]
+            waits = [sum(c[f"{w}_event_waits"].values()) for c in cs for w in ("encode", "decode")]
+            loop = [c["loop_file_syncs"] for c in cs]
+            log(f"[19] {name} {label}: encode {stats(enc, 'MB/s', '.2f')}, decode {stats(dec, 'MB/s', '.2f')}; "
+                f"syncs (encode, decode per run) {syncs}, of them from the batch loops' files {loop}; event "
+                f"waits {waits}; device idle % (encode, decode per run) {idle}")
+    log(f"[19] containers and rows the same in {sum(len(r) for r in runs.values())} runs x 3 repeats, "
+        f"bitwise the serial path; card {card}; {time.perf_counter() - t0:.1f} s")
+
+
 def flag_flips(dev, mld, xs, blob) -> None:
     """Phase 17b: the caller's TF32 flags move nothing.  With
     `cudnn.conv.fp32_precision = 'tf32'` and
@@ -2419,6 +2510,7 @@ def main() -> int:
     measured = measures(dev, card)
     flag_flips(dev, mld, xs, blob)
     benched = bench(dev, card)
+    transfers(card)
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "hsc_tpu", "optax", "orbax"))
     check(not loaded, f"JAX, optax, orbax or the JAX package was imported: {loaded}")

@@ -1,4 +1,5 @@
-"""Device selection and the spec's float32 numerics.
+"""Device selection, the spec's float32 numerics and the transfers between
+host and card.
 
 Every entry point of the port takes ``device=``.  JAX picks its backend
 globally; the port has no global default and never drifts: asking for
@@ -17,12 +18,20 @@ oneDNN convolutions and matmuls on the CPU too (`set_float32_matmul_precision
 non-autotuned algorithms, so one input gives one init in every call.  On
 exit every flag reads what the caller had set: the port changes no global
 flag of the process.
+
+Transfers are asynchronous, as JAX's are: an upload (`to_device`) is staged
+in pinned memory and queued without a host wait, and a copy-back
+(`copy_to_host_async`) is queued into pinned memory and waited for on its
+own CUDA event when the host reads it.  Both run on the current stream, so
+they are ordered with the kernels, and the only host waits of the encode
+and decode paths are those named event waits.
 """
 
 from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 
 # (object, attribute, the value the spec needs).  The precisions are set and
@@ -81,3 +90,51 @@ def device_name(device) -> str:
     measurement names as the device it ran on."""
     dev = torch.device(device)
     return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+
+def to_device(array, device) -> torch.Tensor:
+    """A host array (NumPy or a CPU tensor) on `device`, the counterpart of
+    `jax.device_put`: on a card it is staged in pinned memory and copied
+    with ``non_blocking=True`` on the current stream, so the host does not
+    wait for the work queued before it (a pageable ``.to(device)`` runs
+    `memcpy_and_sync`, a synchronize of the whole stream).  The staging
+    block goes back to PyTorch's caching host allocator, which reuses it
+    only once the copy has run.  On the CPU, and for a tensor already on
+    another card, it is a plain ``.to(device)``."""
+    t = torch.as_tensor(array)
+    dev = torch.device(device)
+    if dev.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
+
+
+class HostCopy:
+    """A device-to-host copy in flight (`copy_to_host_async`).  `numpy()`
+    waits for this copy's CUDA event only, not for the stream, and returns
+    the values in pageable memory of their own, so the pinned staging goes
+    back to the caching host allocator (which never returns pinned pages to
+    the system) and no caller holds a view of it.  For a CPU tensor it is
+    the tensor itself and `numpy()` its ``.numpy()``."""
+
+    def __init__(self, tensor: torch.Tensor):
+        if tensor.device.type != "cuda":
+            self._host, self._event = tensor, None
+            return
+        self._host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
+        self._host.copy_(tensor, non_blocking=True)
+        self._event = torch.cuda.Event()
+        self._event.record(torch.cuda.current_stream(tensor.device))
+
+    def numpy(self) -> np.ndarray:
+        if self._event is None:
+            return self._host.numpy()
+        self._event.synchronize()
+        return self._host.numpy().copy()
+
+
+def copy_to_host_async(tensor: torch.Tensor) -> HostCopy:
+    """Start the copy of `tensor` to the host on its device's current
+    stream and return its `HostCopy`, the counterpart of JAX's
+    ``copy_to_host_async`` followed later by ``device_get``.  The copy is
+    ordered after the kernels queued before it on that stream."""
+    return HostCopy(tensor)

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..device import resolve_device
+from ..device import copy_to_host_async, resolve_device, to_device
 from ..dictionary import MultilevelDictionary
 from ..io import pack_corpus, unpack_corpus
 from ..ops.decode import mp_decode_batch_torch, mp_decode_integer_batch_torch
@@ -37,6 +37,7 @@ from ..ops.init_kernels import int8_init, kernel_planes
 from ..ops.mp_kernels import mp_loop
 from ..oracle.mp import LevelStream, rep_quantize
 from ..params import LevelParams, int8_bank_tables, level_params_from_numpy
+from ..utils import device_get_pipelined
 
 
 def resolve_backend(backend: str, device: torch.device) -> str:
@@ -61,8 +62,9 @@ def check_dictionary(mld) -> None:
 
 
 def to_host(enc: EncodedBlock) -> EncodedBlock:
-    """A device `EncodedBlock` as NumPy arrays."""
-    return EncodedBlock(*(v.cpu().numpy() for v in enc))
+    """A device `EncodedBlock` as NumPy arrays: every field's copy started
+    before the first wait (`utils.device_get_pipelined` of one tree)."""
+    return device_get_pipelined([enc])[0]
 
 
 def pad_streams(streams, cap: int):
@@ -166,8 +168,8 @@ class ConvolutionalMatchingPursuit(nn.Module):
     def loop_stage(self, scores0, e0, scale, inv) -> EncodedBlock:
         """The greedy-loop stage on a precomputed init; `scale`/`inv` are the
         host quantizer steps (NumPy)."""
-        scale = torch.from_numpy(np.asarray(scale, np.float32)).to(self.device)
-        inv = torch.from_numpy(np.asarray(inv, np.float32)).to(self.device)
+        scale = to_device(np.asarray(scale, np.float32), self.device)
+        inv = to_device(np.asarray(inv, np.float32), self.device)
         loop = mp_loop if self.backend == "cuda" else mp_encode_from_init_torch
         return loop(scores0, e0, scale, inv, self.params, **self.settings)
 
@@ -179,11 +181,11 @@ class ConvolutionalMatchingPursuit(nn.Module):
 
     def compute_coefficients_batch(self, xs) -> EncodedBlock:
         """Encode ``[B, N, C]`` (or ``[B, N]``) host or device blocks."""
-        xs = torch.as_tensor(xs, dtype=torch.float32).to(self.device)
+        xs = to_device(torch.as_tensor(xs, dtype=torch.float32), self.device)
         if xs.dim() == 2:
             xs = xs[:, :, None]
         scores0, e0, peak = encode_init_batched(xs, self.bank)
-        scale, inv = quantizer_steps(peak.cpu().numpy(), self.settings["amp_bits"])
+        scale, inv = quantizer_steps(copy_to_host_async(peak).numpy(), self.settings["amp_bits"])
         return self.loop_stage(scores0, e0, scale, inv)
 
     def init_int_batched(self, positions, atoms, codes, count, prev_scale, n_map: int):
@@ -206,7 +208,7 @@ class ConvolutionalMatchingPursuit(nn.Module):
         `init_int_batched`) through the int8 init — the level >= 1 entry
         point under hier_init='int8'."""
         scores0, e0, peak = self.init_int_batched(*events)
-        scale, inv = quantizer_steps(peak.cpu().numpy(), self.settings["amp_bits"])
+        scale, inv = quantizer_steps(copy_to_host_async(peak).numpy(), self.settings["amp_bits"])
         return self.loop_stage(scores0, e0, scale, inv)
 
 
@@ -253,9 +255,9 @@ class ConvolutionalSparseCoder(nn.Module):
         if n is None:
             n = self.cfg.seq_len(self.level)
         cap = max(self.mp.num_coefs, 1, int(stream.positions.shape[0]))
-        args = [torch.from_numpy(a).to(self.mp.device) for a in pad_streams([stream], cap)]
+        args = [to_device(a, self.mp.device) for a in pad_streams([stream], cap)]
         dec = mp_decode_batch if self.mp.backend == "cuda" else mp_decode_batch_torch
-        return dec(*args, self.mp.bank, n=int(n))[0].cpu().numpy()
+        return copy_to_host_async(dec(*args, self.mp.bank, n=int(n))[0]).numpy()
 
 
 class HierarchicalConvolutionalSparseCoder(nn.Module):
@@ -300,7 +302,7 @@ class HierarchicalConvolutionalSparseCoder(nn.Module):
         key = (level, int(rep_bits))
         if key not in self._rep_q_banks:
             q, step = rep_quantize(self.mld.representations(level)[:, :, None], rep_bits)
-            self._rep_q_banks[key] = (torch.from_numpy(q).to(self.device), step)
+            self._rep_q_banks[key] = (to_device(q, self.device), step)
         return self._rep_q_banks[key]
 
     def encode_batch_device(self, xs) -> list[EncodedBlock]:
@@ -340,14 +342,14 @@ class HierarchicalConvolutionalSparseCoder(nn.Module):
         mode = self.cfg.decode_mode if mode is None else mode
         cap = max(self.cfg.num_coefs[level], 1, int(top_stream.positions.shape[0]))
         dev = self._decode_device_call(*pad_streams([top_stream], cap), level, mode, rep_bits)
-        return dev[0, :, 0].cpu().numpy()
+        return copy_to_host_async(dev[0, :, 0]).numpy()
 
     def reconstruct_batch(self, streams, level=None, mode=None, rep_bits=None) -> np.ndarray:
         """Batched reconstruction ``[B, block_size]``, bitwise
         `oracle.mp.mp_decode_integer` (mode 'integer') or
         `oracle.hierarchical_decode` (mode 'ordered') per block."""
         dev = self.reconstruct_batch_device(streams, level=level, mode=mode, rep_bits=rep_bits)
-        return dev.cpu().numpy()[:, :, 0]
+        return copy_to_host_async(dev).numpy()[:, :, 0]
 
     def reconstruct_batch_device(self, streams, level=None, mode=None, rep_bits=None):
         """`reconstruct_batch` without the host copy: a device tensor
@@ -361,12 +363,12 @@ class HierarchicalConvolutionalSparseCoder(nn.Module):
         if mode == "integer":
             rep_q, step = self._rep_q(level, rep_bits or self.cfg.rep_bits)
             amp_step = (scl * np.float32(step)).astype(np.float32)  # f32(scale * step)
-            args = [torch.from_numpy(a).to(self.device) for a in (pos, atm, cds, cnt, amp_step)]
+            args = [to_device(a, self.device) for a in (pos, atm, cds, cnt, amp_step)]
             dec = mp_decode_integer_batch if cuda else mp_decode_integer_batch_torch
             return dec(*args, rep_q, n=self.cfg.block_size)
         if mode != "ordered":
             raise ValueError(f"unknown decode mode {mode!r}")
-        args = [torch.from_numpy(a).to(self.device) for a in (pos, atm, cds, cnt, scl)]
+        args = [to_device(a, self.device) for a in (pos, atm, cds, cnt, scl)]
         dec = mp_decode_batch if cuda else mp_decode_batch_torch
         return dec(*args, self._rep_banks[level], n=self.cfg.block_size)
 

@@ -3,10 +3,14 @@
 Counterparts of `hsc_tpu.ops.pipeline.encode_batches_pipelined` (one level)
 and `encode_hierarchical_batches_pipelined` (every level).  The host
 quantizer steps (`ops.encode.quantizer_steps`) need each batch's peak vector
-on the host: one ``.cpu()`` of a ``[B]`` vector per batch.  Inits are
-dispatched up to `window` batches ahead, so a batch's peak is usually ready
-when its loop is due; per-batch arithmetic is unchanged, so streams are
-bitwise the unpipelined ones.
+on the host.  As in the JAX package, every transfer is asynchronous: a
+batch is uploaded through pinned memory without a host wait
+(`device.to_device`), the copy of its ``[B]`` peak is started right after
+its init is dispatched (`device.copy_to_host_async`), and the host waits on
+that copy's event alone when the batch's loop is due, so the inits
+dispatched up to `window` batches ahead and the loops queue on the card
+while the host works.  Per-batch arithmetic and the order of launches are
+unchanged, so streams are bitwise the unpipelined ones.
 """
 
 from __future__ import annotations
@@ -14,8 +18,8 @@ from __future__ import annotations
 from collections import deque
 
 import numpy as np
-import torch
 
+from ..device import copy_to_host_async, to_device
 from .encode import encode_init_batched, mp_encode_from_init_torch, quantizer_steps
 from .mp_kernels import mp_loop
 
@@ -49,20 +53,18 @@ def encode_batches_pipelined(
 
     def _dispatch_init():
         nonlocal bi
-        xb = torch.from_numpy(np.ascontiguousarray(batches[bi], dtype=np.float32))
-        inits.append(encode_init_batched(xb.to(device), params.bank))
+        xb = to_device(np.ascontiguousarray(batches[bi], dtype=np.float32), device)
+        s0, e0, peak = encode_init_batched(xb, params.bank)
+        inits.append((s0, e0, copy_to_host_async(peak)))
         bi += 1
 
     while bi < n and len(inits) < step:
         _dispatch_init()
     while inits:
         s0, e0, peak = inits.popleft()
-        scale, inv = quantizer_steps(peak.cpu().numpy(), amp_bits)
+        scale, inv = quantizer_steps(peak.numpy(), amp_bits)
         outs.append(
-            loop(
-                s0, e0, torch.from_numpy(scale).to(device),
-                torch.from_numpy(inv).to(device), params, **settings,
-            )
+            loop(s0, e0, to_device(scale, device), to_device(inv, device), params, **settings)
         )
         if bi < n:
             _dispatch_init()
@@ -80,9 +82,10 @@ def encode_hierarchical_batches_pipelined(batches: list, coder, window: int = 4)
 
     The dataflow and drain policy are the JAX package's: each level keeps a
     FIFO of pending inits (at most `window`); level 0 is fed while it has
-    room; a level's oldest peak is fetched (one ``.cpu()`` of a ``[B]``
-    vector) only once that level holds a full window — deepest such level
-    first — and otherwise the shallowest non-empty level drains."""
+    room; a level's oldest peak (its copy started when its init was
+    dispatched) is waited for only once that level holds a full window —
+    deepest such level first — and otherwise the shallowest non-empty level
+    drains."""
     n_levels = coder.cfg.num_levels
     outs = [[] for _ in range(n_levels)]
     pend = [deque() for _ in range(n_levels)]
@@ -91,14 +94,15 @@ def encode_hierarchical_batches_pipelined(batches: list, coder, window: int = 4)
     def _push(level, xb):
         mp = coder.coders[level].mp
         if mp.int8_init:
-            pend[level].append(mp.init_int_batched(*xb))  # the level below's events
+            s0, e0, peak = mp.init_int_batched(*xb)  # the level below's events
         else:
-            pend[level].append(encode_init_batched(xb, mp.bank))
+            s0, e0, peak = encode_init_batched(xb, mp.bank)
+        pend[level].append((s0, e0, copy_to_host_async(peak)))
 
     def _pop(level):
         mp = coder.coders[level].mp
         s0, e0, peak = pend[level].popleft()
-        scale, inv = quantizer_steps(peak.cpu().numpy(), mp.settings["amp_bits"])
+        scale, inv = quantizer_steps(peak.numpy(), mp.settings["amp_bits"])
         enc = mp.loop_stage(s0, e0, scale, inv)
         outs[level].append(enc)
         if level + 1 < n_levels:
@@ -108,8 +112,7 @@ def encode_hierarchical_batches_pipelined(batches: list, coder, window: int = 4)
     bi = 0
     while bi < len(batches) or any(pend):
         if bi < len(batches) and len(pend[0]) < w:
-            xb = torch.from_numpy(np.ascontiguousarray(batches[bi], dtype=np.float32))
-            _push(0, xb.to(device))
+            _push(0, to_device(np.ascontiguousarray(batches[bi], dtype=np.float32), device))
             bi += 1
             continue
         lvl = next((k for k in reversed(range(n_levels)) if len(pend[k]) >= w), None)

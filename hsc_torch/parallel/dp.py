@@ -7,8 +7,9 @@ Each batch runs the single-device path's three stages on every shard:
 
   1. the init of the shard's blocks on its device (`encode_init_batched`,
      or at an int8 level the int8 init from the events of the level below);
-  2. ONE host read of every shard's peaks, then the spec's host quantizer
-     steps (`ops.encode.quantizer_steps`);
+  2. every shard's peak copy started on its device, then one wait on each
+     copy's event (`utils.device_get_pipelined`) and the spec's host
+     quantizer steps (`ops.encode.quantizer_steps`);
   3. the greedy loop of each shard (`ConvolutionalMatchingPursuit
      .loop_stage`: `ops.mp_kernels.mp_loop`, the CUDA kernel, on a card).
 
@@ -28,8 +29,10 @@ import weakref
 import numpy as np
 import torch
 
+from ..device import to_device
 from ..models.coder import ConvolutionalMatchingPursuit, HierarchicalConvolutionalSparseCoder
 from ..ops.encode import EncodedBlock, encode_init_batched, quantizer_steps
+from ..utils import device_get_pipelined
 from .mesh import Mesh, canonical_device, check_mesh_device
 
 
@@ -70,9 +73,10 @@ def pad_rows(a: np.ndarray, rows: int) -> np.ndarray:
 
 def gather_blocks(encs: list[EncodedBlock], b: int) -> EncodedBlock:
     """Per-shard device `EncodedBlock`s -> one host `EncodedBlock` in shard
-    (= original block) order, trimmed to `b` blocks."""
+    (= original block) order, trimmed to `b` blocks; every shard's copies
+    are started before the first wait."""
     return EncodedBlock(*(
-        np.concatenate([f.cpu().numpy() for f in fields])[:b] for fields in zip(*encs)
+        np.concatenate(fields)[:b] for fields in zip(*device_get_pipelined(encs))
     ))
 
 
@@ -100,16 +104,17 @@ class DataParallelEncoder:
 
     def upload(self, padded: np.ndarray) -> list[torch.Tensor]:
         """Host ``[B, ...]`` (B a multiple of the shard count) -> one
-        contiguous slice of B / S blocks per shard, on its device."""
+        contiguous slice of B / S blocks per shard, on its device (uploads
+        queued without a host wait, `device.to_device`)."""
         per = padded.shape[0] // self.num_shards
         return [
-            torch.from_numpy(np.ascontiguousarray(padded[i * per : (i + 1) * per])).to(dev)
+            to_device(np.ascontiguousarray(padded[i * per : (i + 1) * per]), dev)
             for i, dev in enumerate(self.devices)
         ]
 
     def _finish(self, inits) -> list[EncodedBlock]:
         """Stages 2 and 3 on every shard's ``(scores0, e0, peak)``."""
-        peaks = torch.cat([p.to(self.devices[0]) for _, _, p in inits]).cpu().numpy()
+        peaks = np.concatenate(device_get_pipelined([p for _, _, p in inits]))
         scale, inv = quantizer_steps(peaks, self.mp.settings["amp_bits"])
         out, lo = [], 0
         for dev, (s0, e0, _) in zip(self.devices, inits):
@@ -188,13 +193,13 @@ class DataParallelEncoder:
             torch.device("cuda", torch.cuda.current_device())
             if dist.get_backend() == "nccl" else torch.device("cpu")
         )
-        fields = []
+        gathered = []
         for v in enc:
-            t = torch.from_numpy(np.ascontiguousarray(v)).to(gdev)
+            t = to_device(np.ascontiguousarray(v), gdev)
             parts = [torch.empty_like(t) for _ in range(nproc)]
             dist.all_gather(parts, t)
-            fields.append(torch.cat(parts).cpu().numpy()[:n_global])
-        return EncodedBlock(*fields)
+            gathered.append(torch.cat(parts))
+        return EncodedBlock(*(f[:n_global] for f in device_get_pipelined(gathered)))
 
 
 class HierarchicalDataParallelEncoder:

@@ -50,9 +50,11 @@ from .io.bitstream import (
     unpack_block,
 )
 from .io.journal import EncodeJournal
-from .models.coder import HierarchicalConvolutionalSparseCoder, level_streams, to_host
+from .device import copy_to_host_async
+from .models.coder import HierarchicalConvolutionalSparseCoder, level_streams
 from .ops.pipeline import encode_batches_pipelined, encode_hierarchical_batches_pipelined
 from .oracle.mp import LevelStream, to_distributed
+from .utils import device_get_pipelined
 from .utils.metrics import MetricsLogger
 
 
@@ -545,7 +547,7 @@ class CorpusEncoder:
             )
         else:
             encs = encode_hierarchical_batches_pipelined(batches, self.coder)[-1]
-        encs = [to_host(e) for e in encs]
+        encs = device_get_pipelined(encs)
         dt = time.perf_counter() - t0
         events = 0
         total_bytes = 0
@@ -679,7 +681,10 @@ class CorpusEncoder:
         """Yield decoded ``[chunk, block_size]`` arrays in container order,
         one chunk of `batch_size` blocks at a time, up to 4 device decodes
         in flight while the host unpacks the next chunk
-        (`hsc_tpu.runtime.CorpusEncoder._decode_chunks`).  `blocks` may be a
+        (`hsc_tpu.runtime.CorpusEncoder._decode_chunks`): each decode's
+        uploads are queued without a host wait, its rows' copy-back is
+        started when it is dispatched, and the host waits on that copy's
+        event when it drains the decode.  `blocks` may be a
         lazy iterator of per-block ``[(level, stream)]`` lists.  A chunk of
         top-only blocks is one batched decode; a distributed or mixed chunk
         (at most one stream per level per block, ascending) is one batched
@@ -688,7 +693,8 @@ class CorpusEncoder:
         `reconstruct`, streams in container order."""
         top = cfg.num_levels - 1
         it = iter(blocks)
-        # pending: (chunk index, block ids or None for the whole chunk, rows)
+        # pending: (chunk index, block ids or None for the whole chunk, the
+        # rows' HostCopy)
         pending: deque = deque()
         outs: dict[int, np.ndarray] = {}
         units_left: dict[int, int] = {}
@@ -701,8 +707,8 @@ class CorpusEncoder:
             return dec(streams, level=level, mode=mode, rep_bits=rep_bits)
 
         def drain_one():
-            ci, ids, dev = pending.popleft()
-            rows = dev.cpu().numpy()[:, :, 0]
+            ci, ids, copy = pending.popleft()
+            rows = copy.numpy()[:, :, 0]
             if ids is None:
                 outs[ci] = rows
             else:
@@ -711,7 +717,9 @@ class CorpusEncoder:
             units_left[ci] -= 1
 
         def submit(ci, ids, dev):
-            pending.append((ci, ids, dev))
+            # the copy-back starts now, behind this decode on the stream;
+            # drain_one waits for it alone
+            pending.append((ci, ids, copy_to_host_async(dev)))
             if len(pending) >= 4:
                 drain_one()
 

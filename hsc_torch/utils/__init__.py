@@ -1,13 +1,15 @@
 """Small numeric helpers shared by host-side code.
 
-The port's own copy of `hsc_tpu/utils/__init__.py` but for
-`device_get_pipelined` (JAX only): `normalize`, `overlap_add`,
-`overlap_replace`, `find_grid_size`, `snr_db` and `Timer`.  Reference
-parity: `hsc/utils.py :: normalize, overlapAdd, overlapReplace,
+The port's own copy of `hsc_tpu/utils/__init__.py`: `normalize`,
+`overlap_add`, `overlap_replace`, `find_grid_size`, `snr_db` and `Timer`.
+Reference parity: `hsc/utils.py :: normalize, overlapAdd, overlapReplace,
 findGridSize` (SURVEY.md §2 C10).  They run on the host (NumPy); the
 dictionary generator, its `visualize` and the SNR readouts use them, and
 `Timer` times the measuring scripts' host steps.
 tests/test_torch_copies.py holds them equal to the originals.
+`device_get_pipelined` is the counterpart of the JAX helper of that name,
+over `device.copy_to_host_async` (tests/test_torch_transfer.py holds it to
+the original).
 """
 
 from __future__ import annotations
@@ -16,6 +18,31 @@ import math
 import time
 
 import numpy as np
+import torch
+
+from ..device import HostCopy, copy_to_host_async
+
+
+def _tree_map(fn, tree, leaf_type):
+    """`tree` (nested tuples, named tuples and lists) with `fn` applied to
+    every leaf of `leaf_type`; other leaves are kept as they are."""
+    if isinstance(tree, leaf_type):
+        return fn(tree)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_tree_map(fn, v, leaf_type) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, v, leaf_type) for v in tree)
+    return tree
+
+
+def device_get_pipelined(trees):
+    """Every tensor of a list of trees (tuples, named tuples such as
+    `EncodedBlock`, lists) as a NumPy array: every device-to-host copy is
+    started first, then each is waited for on its own event, leaf by leaf
+    -- one overlapped burst of copies instead of one synchronized fetch per
+    tensor.  Non-tensor leaves pass through."""
+    started = [_tree_map(copy_to_host_async, t, torch.Tensor) for t in trees]
+    return [_tree_map(lambda h: h.numpy(), t, HostCopy) for t in started]
 
 
 def normalize(x: np.ndarray, axis=None, eps: float = 1e-12) -> np.ndarray:

@@ -10,11 +10,13 @@ The counterpart of scripts/smoke.py.  Checks:
   3. chip_smoke.py, scripts/torch_fuzz_parity.py, the experiment
      drivers (scripts/torch_run_experiment.py,
      scripts/torch_run_audio_experiment.py), the measuring scripts
-     (scripts/torch_bench_*.py) and the bench (scripts/torch_bench.py)
-     import, and the entry points chip_smoke.py calls resolve (the
-     drivers', the measuring scripts' and the bench's `main`,
+     (scripts/torch_bench_*.py), the bench (scripts/torch_bench.py) and
+     the transfer A/B (scripts/torch_transfer_ab.py) import, and the
+     entry points chip_smoke.py calls resolve (the drivers', the
+     measuring scripts', the bench's and the A/B's `main`,
      `ops.mp_kernels.mp_loop`, `ops.decode_integer_kernel`,
-     `ops.decode_kernel`, `ops.init_kernels.int8_init`, `_build`).
+     `ops.decode_kernel`, `ops.init_kernels.int8_init`, `_build`, the
+     transfers of `device` and `utils`).
 
     python scripts/torch_smoke.py
 
@@ -98,13 +100,16 @@ def main() -> int:
     # -- 3. the card scripts import and their kernel entry points resolve ---
     for mod, names in (
         ("chip_smoke", ("main", "gates", "odd_width_int_decode", "experiments", "measures", "flag_flips",
-                        "bench")),
+                        "bench", "transfers", "parent_tree")),
         ("torch_fuzz_parity", ("run_shape", "run_hier_shape", "run_container_shape", "flat_parity")),
         ("torch_run_experiment", ("main", "parse_args")),
         ("torch_run_audio_experiment", ("main", "parse_args")),
         *((f"torch_bench_{name}", ("main", "parse_args", "measure"))
           for name in ("serving", "decode_marginal", "encode_stages", "hier_stages", "scaling")),
         ("torch_bench", ("main", "parse_args", "flat_cells", "decode_cells", "hier_cell", "kmeans_cell")),
+        ("torch_transfer_ab", ("main", "counted_waits", "serial_check", "staging_ms", "copyback_ms")),
+        ("hsc_torch.device", ("to_device", "copy_to_host_async")),
+        ("hsc_torch.utils", ("device_get_pipelined",)),
         ("hsc_torch.ops.mp_kernels", ("mp_loop",)),
         ("hsc_torch.ops.decode_integer_kernel", ("mp_decode_integer_batch",)),
         ("hsc_torch.ops.decode_kernel", ("mp_decode_batch",)),

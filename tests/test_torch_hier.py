@@ -56,7 +56,7 @@ from hsc_torch.ops.encode import (
     feature_map_int,
     int8_init_from_events_torch,
 )
-from hsc_torch.ops.pipeline import encode_hierarchical_batches_pipelined
+from hsc_torch.ops.pipeline import encode_batches_pipelined, encode_hierarchical_batches_pipelined
 from hsc_torch.params import dictionary_from_arrays, level_params_from_mld, level_params_from_numpy
 from hsc_torch.runtime import CorpusEncoder
 from pinned import oracle_hierarchical_pinned
@@ -375,18 +375,31 @@ def test_level_params_int8_tables_from_jax_arrays(mld2):
 # ---- the level pipeline ----------------------------------------------------
 
 
-@pytest.mark.parametrize("window", [1, 2, 4])
-def test_pipeline_equals_serial(mld2, window):
-    """The level-pipelined encode gives every level's streams bitwise as the
-    serial per-batch encode, whatever the window."""
+@pytest.mark.parametrize(
+    "window,levels",
+    [(1, 2), (2, 2), (4, 2), (1, 1), (2, 1), (None, 1)],
+    ids=["1", "2", "4", "flat-1", "flat-2", "flat-None"],
+)
+def test_pipeline_equals_serial(mld2, window, levels):
+    """The level-pipelined encode (levels 2) gives every level's streams
+    bitwise as the serial per-batch encode, whatever the window; so does
+    the single-level pipeline (levels 1, `encode_batches_pipelined` on
+    level 0, window None = every batch's init dispatched first) against
+    the serial `compute_coefficients_batch`."""
     xs = _signals(mld2, 7, seed=37)
     batches = [xs[i : i + 2][:, :, None] for i in range(0, 7, 2)]
     coder = HierarchicalConvolutionalSparseCoder(_port(mld2), device="cpu")
-    outs = encode_hierarchical_batches_pipelined(batches, coder, window=window)
-    assert [len(o) for o in outs] == [4, 4]
+    if levels == 1:
+        mp = coder.coders[0].mp
+        outs = [encode_batches_pipelined(
+            batches, mp.params, device="cpu", backend=mp.backend, window=window, **mp.settings
+        )]
+    else:
+        outs = encode_hierarchical_batches_pipelined(batches, coder, window=window)
+    assert [len(o) for o in outs] == [4] * levels
     for i, xb in enumerate(batches):
         serial = coder.encode_batch_device(xb)
-        for level in range(2):
+        for level in range(levels):
             for x, y in zip(outs[level][i], serial[level]):
                 assert torch.equal(x, y)
 
