@@ -194,6 +194,17 @@ Then:
      `runtime.py`, every host copy in the profiles "Pinned"; the
      synchronizing calls and event waits by file:line, the host-wall
      MB/s and the device's idle share of both trees logged side by side.
+ 20. the gates' blind spots: scripts/torch_fuzz_parity.py's --batch,
+     --long, --three-level, --container-f32 and --mesh modes at fixed
+     seeds, counted, every shape logged and bitwise: corpora of up to 200
+     blocks (more than the card's SMs) the same at batch 1, odd and whole
+     and the kernel loops the plain loops; blocks of 12288-65536 samples
+     on both of the loop kernel's routes and the int8 init's global sort
+     (the kernels' workspaces those the script's H100 rules predict);
+     3-level hierarchies with each hier_init; 2- and 3-level containers
+     with the f32 hand-off, one distributed; ragged corpora on meshes of
+     2-4 shards with SP and TP; the phase fails if the shapes did not
+     cover each of these.
 
 Every phase is fatal on failure.  The NumPy spec it checks against is the
 port's own copy (`hsc_torch.oracle`, `hsc_torch.io`); the script fails if
@@ -203,8 +214,8 @@ counted hierarchical path, error against the plain version, its time as
 phases 6 and 10 time it, its device time, the plain version's, the bound
 computed from this run's inputs and, where one PyTorch call computes the
 same function, that call's time; `launches_learning`, `launches_mesh`,
-`launches_gates`, `launches_experiments`, `launches_measure` and
-`launches_bench` count phases 13-18), then the
+`launches_gates`, `launches_experiments`, `launches_measure`,
+`launches_bench` and `launches_blind_spots` count phases 13-18 and 20), then the
 card's name and power limit.  The last line is one JSON object with the
 device.
 """
@@ -1932,6 +1943,82 @@ def gates(dev) -> dict:
     return {"launches": total, "seconds": seconds}
 
 
+# phase 20: scripts/torch_fuzz_parity.py's modes for the gates' blind spots,
+# each at a fixed base seed (seeds base * 1000 + i) and shape count, drawn so
+# that the shapes cover what the phase checks they cover
+BLIND_SPOTS = {"batch": (2, 3), "long": (2, 6), "three_level": (3, 2), "container_f32": (2, 3), "mesh": (2, 3)}
+
+
+def blind_spots(dev, card) -> dict:
+    """Phase 20: the gates' blind spots.  scripts/torch_fuzz_parity.py's
+    --batch, --long, --three-level, --container-f32 and --mesh modes at
+    `BLIND_SPOTS`' seeds, counted, every shape logged, fatal on any shape
+    that differs.  Then what the shapes covered: at least 2 long shapes
+    whose level-0 loop keeps its selection cache in a global workspace and
+    2 in shared memory (the kernels' own answers, which on a card with the
+    H100's 227 KiB opt-in must be the script's H100 rules), at least 1
+    whose level-1 int8 init sorts in a global workspace, a corpus of more
+    blocks than the card has SMs, a 3-level shape with each hier_init, an
+    f32 container that is distributed and keeps a level below the top, a
+    mesh shape that ran `sp_loop` and `tp_loop`, and every kernel launched.
+    Returns the launches and the phase's seconds."""
+    import importlib
+    import os
+
+    import torch
+
+    t_phase = time.perf_counter()
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    fuzz = importlib.import_module("torch_fuzz_parity")
+    total = dict.fromkeys(kernel_counters(), 0)
+    results = {}
+    for mode, (base, n) in BLIND_SPOTS.items():
+        seeds = [base * 1000 + i for i in range(n)]
+        t0 = time.perf_counter()
+        with counted() as launches:
+            results[mode] = [fuzz.MODES[mode][0](seed, dev) for seed in seeds]
+        for r in results[mode]:
+            log(f"[20] {mode} {json.dumps(r)}")
+        bad = [(r["seed"], r["diff"]) for r in results[mode] if not r["ok"]]
+        check(not bad, f"phase 20 {mode}: shapes differ: {bad}")
+        for k, v in launches.items():
+            total[k] += v
+        log(f"[20] {mode}, base seed {base}, seeds {seeds[0]}-{seeds[-1]}: {n}/{n} shapes bitwise; launches "
+            f"{launches}; {time.perf_counter() - t0:.1f} s")
+    props = torch.cuda.get_device_properties(0)
+    long = results["long"]
+    if props.shared_memory_per_block_optin == fuzz.H100_SMEM_OPTIN:
+        off = [(r["seed"], r["mp_workspace_bytes"], r["h100_rule_mp_workspace_bytes"], r["int8_sort_workspace_ints"],
+                r["h100_rule_int8_sort_workspace_ints"]) for r in long
+               if (r["mp_workspace_bytes"], r["int8_sort_workspace_ints"])
+               != (r["h100_rule_mp_workspace_bytes"], r["h100_rule_int8_sort_workspace_ints"])]
+        check(not off, f"phase 20: the kernels' workspaces differ from the script's H100 rules: {off}")
+    routes = [r["mp_workspace_bytes"][0] > 0 for r in long]
+    sorts = sum((r["int8_sort_workspace_ints"] or 0) > 0 for r in long)
+    widest = max(r["blocks"] for r in results["batch"])
+    inits = sorted({r["hier_init"] for r in results["three_level"]})
+    dist = [r["seed"] for r in results["container_f32"]
+            if r["hier_init"] == "f32" and r["distributed"] and any(len(s) > 1 for s in r["streams"])]
+    meshes = sum(r["sp_tp"] for r in results["mesh"])
+    check(sum(routes) >= 2 and routes.count(False) >= 2,
+          f"phase 20: long shapes on the loop's workspace / shared-memory routes {sum(routes)} / "
+          f"{routes.count(False)}, fewer than 2 each")
+    check(sorts >= 1, "phase 20: no long shape took the int8 init's global sort")
+    check(widest > props.multi_processor_count,
+          f"phase 20: the widest corpus, {widest} blocks, does not pass the card's {props.multi_processor_count} SMs")
+    check(inits == ["f32", "int8"], f"phase 20: the 3-level shapes drew hier_init {inits}")
+    check(dist, "phase 20: no f32 container was distributed with a level below the top")
+    check(meshes >= 1, "phase 20: no mesh shape ran sp_loop and tp_loop")
+    check(all(v > 0 for v in total.values()), f"phase 20: a kernel never launched: {total}")
+    seconds = time.perf_counter() - t_phase
+    log(f"[20] coverage: long shapes on the loop's workspace / shared-memory route {sum(routes)} / "
+        f"{routes.count(False)}, on the int8 init's global sort {sorts}; widest corpus {widest} blocks on "
+        f"{props.multi_processor_count} SMs; 3-level hier_init {inits}; distributed f32 containers {dist}; "
+        f"mesh shapes with SP and TP {meshes}")
+    log(f"[20] the gates' blind spots took {seconds:.1f} s; launches {total}; card {card}")
+    return {"launches": total, "seconds": seconds}
+
+
 # phase 16: the experiment drivers, each run into a fresh directory.  (a) the
 # flat flagship at the main path's width and batch; (b) the experiment's own
 # 2-level defaults; (c) the audio driver's defaults (16 s of music) and (d)
@@ -2511,6 +2598,7 @@ def main() -> int:
     flag_flips(dev, mld, xs, blob)
     benched = bench(dev, card)
     transfers(card)
+    blind = blind_spots(dev, card)
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "hsc_tpu", "optax", "orbax"))
     check(not loaded, f"JAX, optax, orbax or the JAX package was imported: {loaded}")
@@ -2527,13 +2615,14 @@ def main() -> int:
          "library_ms": None},
         *hier_kernels,
     ]
-    for row in kernels:  # phases 13's to 18's counts, beside the main path's
+    for row in kernels:  # phases 13's to 18's and 20's counts, beside the main path's
         row["launches_learning"] = learned["launches"][row["name"]]
         row["launches_mesh"] = meshed["launches"][row["name"]]
         row["launches_gates"] = gated["launches"][row["name"]]
         row["launches_experiments"] = experimented["launches"][row["name"]]
         row["launches_measure"] = measured["launches"][row["name"]]
         row["launches_bench"] = benched["launches"][row["name"]]
+        row["launches_blind_spots"] = blind["launches"][row["name"]]
     log(f"[end] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
