@@ -205,6 +205,14 @@ Then:
      with the f32 hand-off, one distributed; ragged corpora on meshes of
      2-4 shards with SP and TP; the phase fails if the shapes did not
      cover each of these.
+ 21. the parallel layer across cards: with 2 or more cards visible,
+     scripts/torch_multicard.py --mode all --cards min(4, N) in a
+     subprocess, its lines logged; any failed check fails the phase (the
+     one-process mesh with shard i on card i mod N and the NCCL
+     multi-process encode, each held bytewise to the same work on one
+     card).  With one card it logs "[21] not run: 1 card visible", which
+     is not a pass, and the line before the kernels' line says
+     ``{"multicard": {"cards": 1, "ran": false}}``.
 
 Every phase is fatal on failure.  The NumPy spec it checks against is the
 port's own copy (`hsc_torch.oracle`, `hsc_torch.io`); the script fails if
@@ -216,8 +224,9 @@ computed from this run's inputs and, where one PyTorch call computes the
 same function, that call's time; `launches_learning`, `launches_mesh`,
 `launches_gates`, `launches_experiments`, `launches_measure`,
 `launches_bench` and `launches_blind_spots` count phases 13-18 and 20), then the
-card's name and power limit.  The last line is one JSON object with the
-device.
+card's name and power limit; the line before the kernels' says whether
+phase 21 ran (``{"multicard": ...}``).  The last line is one JSON object
+with the device.
 """
 
 from __future__ import annotations
@@ -304,25 +313,35 @@ def graph_ms(fn, launches: int = 20, replays: int = 10) -> float:
     return start.elapsed_time(end) / (replays * launches)
 
 
-def device_profile(fn, trace_path: str) -> dict:
+def device_profile(fn, trace_path: str, devices=None) -> dict:
     """Run `fn` under torch.profiler and read the device timeline back from
     its chrome trace: host wall ms, device-busy ms (union of kernel, memcpy
     and memset intervals), device ms and launches per kernel name, and device ms per
     `torch.profiler.record_function` range (the kernels, copies and fills
-    launched inside it, matched by their correlation ids).  A trace that
-    holds no device activity at all is taken again, up to twice: on the H100
-    a later profile in a process has come back without its device events."""
+    launched inside it, matched by their correlation ids); per card index,
+    its busy ms (``busy_ms_by_device``) and the full names of the kernels it
+    ran (``kernels_by_device``).  With `devices` (several cards) each is
+    synchronized before and after `fn`, else the current one after it.  A
+    trace that holds no device activity at all is taken again, up to twice:
+    on the H100 a later profile in a process has come back without its
+    device events."""
     import os
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    def sync():
+        for d in devices or [None]:
+            torch.cuda.synchronize(d)
+
     device_cats = ("kernel", "gpu_memcpy", "gpu_memset")
     for attempt in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            if devices:
+                sync()
             t0 = time.perf_counter()
             fn()
-            torch.cuda.synchronize()
+            sync()
             wall_ms = (time.perf_counter() - t0) * 1e3
         os.makedirs(os.path.dirname(trace_path), exist_ok=True)
         prof.export_chrome_trace(trace_path)
@@ -343,22 +362,33 @@ def device_profile(fn, trace_path: str) -> dict:
                 if any(lo <= ts <= hi for lo, hi in spans_):
                     launched[e["args"]["correlation"]] = name
     spans, by_name, n_by_name, by_range = [], {}, {}, {name: 0.0 for name in ranges}
+    spans_by_device, kernels_by_device = {}, {}
     for e in events:
         if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e:
             spans.append((float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+            card = int(e.get("args", {}).get("device", e.get("pid", -1)))
+            spans_by_device.setdefault(card, []).append(spans[-1])
+            if e["cat"] == "kernel":
+                kernels_by_device.setdefault(card, set()).add(e["name"])
             key = e["name"].replace("(anonymous namespace)::", "").split("(")[0][-40:]
             by_name[key] = by_name.get(key, 0.0) + float(e["dur"]) / 1e3
             n_by_name[key] = n_by_name.get(key, 0) + 1
             name = launched.get(e.get("args", {}).get("correlation"))
             if name is not None:
                 by_range[name] += float(e["dur"]) / 1e3
+    return {"wall_ms": wall_ms, "busy_ms": union_ms(spans), "by_name": by_name, "n_by_name": n_by_name,
+            "by_range": by_range, "busy_ms_by_device": {c: union_ms(v) for c, v in sorted(spans_by_device.items())},
+            "kernels_by_device": {c: sorted(v) for c, v in sorted(kernels_by_device.items())}}
+
+
+def union_ms(spans) -> float:
+    """The length in ms of the union of (start, end) intervals in us."""
     busy, end = 0.0, float("-inf")
     for lo, hi in sorted(spans):
         if hi > end:
             busy += hi - max(lo, end)
             end = hi
-    return {"wall_ms": wall_ms, "busy_ms": busy / 1e3, "by_name": by_name, "n_by_name": n_by_name,
-            "by_range": by_range}
+    return busy / 1e3
 
 
 def kernel_ms(prof: dict, *names: str) -> float:
@@ -2019,6 +2049,41 @@ def blind_spots(dev, card) -> dict:
     return {"launches": total, "seconds": seconds}
 
 
+# phase 21: scripts/torch_multicard.py on up to this many cards
+MULTICARD_MAX = 4
+
+
+def multicard() -> dict:
+    """Phase 21: scripts/torch_multicard.py --mode all on min(4, N) cards in
+    a subprocess, each line it prints logged; with one card visible it does
+    not run.  Returns ``{"cards", "ran"}`` and, where it ran, its checks
+    and seconds."""
+    import os
+
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"[21] not run: {n} card visible")
+        return {"cards": n, "ran": False}
+    cards = min(MULTICARD_MAX, n)
+    torch.cuda.empty_cache()  # the subprocess's processes share the cards
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(here, "scripts", "torch_multicard.py"), "--mode", "all",
+                           "--cards", str(cards)], capture_output=True, text=True, timeout=900)
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        log(f"[21] {line}")
+    check(proc.returncode == 0 and lines, f"phase 21: torch_multicard.py exited {proc.returncode}: "
+                                          f"{proc.stderr[-3000:]}")
+    summary = json.loads(lines[-1])
+    check(summary["ok"] and summary["cards"] == cards, f"phase 21: torch_multicard.py failed: {summary}")
+    seconds = time.perf_counter() - t0
+    log(f"[21] {summary['checks']} checks on {cards} cards passed bytewise; {seconds:.1f} s")
+    return {"cards": cards, "ran": True, "checks": summary["checks"], "seconds": seconds}
+
+
 # phase 16: the experiment drivers, each run into a fresh directory.  (a) the
 # flat flagship at the main path's width and batch; (b) the experiment's own
 # 2-level defaults; (c) the audio driver's defaults (16 s of music) and (d)
@@ -2599,6 +2664,7 @@ def main() -> int:
     benched = bench(dev, card)
     transfers(card)
     blind = blind_spots(dev, card)
+    cards = multicard()
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "hsc_tpu", "optax", "orbax"))
     check(not loaded, f"JAX, optax, orbax or the JAX package was imported: {loaded}")
@@ -2624,6 +2690,7 @@ def main() -> int:
         row["launches_bench"] = benched["launches"][row["name"]]
         row["launches_blind_spots"] = blind["launches"][row["name"]]
     log(f"[end] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"multicard": cards}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -77,6 +77,19 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def canonical_device(device) -> torch.device:
+    """`device` resolved (`resolve_device`), with a CUDA device's index made
+    explicit: ``'cuda'`` becomes the card current at this call.  What an
+    object that holds tensors stores as its device, so that it keeps its
+    card when another card is current later (a thread that switched cards,
+    a process that joined a group after building it), and so that equal
+    devices compare equal."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def synchronize(device) -> None:
     """Wait for the work queued on `device` (a no-op on the CPU): the end of
     a timed region."""

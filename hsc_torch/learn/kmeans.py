@@ -31,7 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..device import resolve_device, spec_numerics
+from ..device import canonical_device, spec_numerics
 
 
 class KMeansStats(NamedTuple):
@@ -207,7 +207,7 @@ class ConvolutionalDictionaryLearner:
     ):
         if algorithm not in ("samples", "kmean"):
             raise ValueError(f"unknown algorithm {algorithm!r}")
-        self.device = resolve_device(device)
+        self.device = canonical_device(device)
         self.k = int(k)
         self.window = int(window)
         self.channels = int(channels)

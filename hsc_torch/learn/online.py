@@ -32,7 +32,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..device import resolve_device, spec_numerics
+from ..device import canonical_device, spec_numerics
 from ..dictionary import bank_gram
 from ..models.coder import ConvolutionalMatchingPursuit
 from ..ops.decode import _live_events
@@ -89,7 +89,7 @@ class OnlineConvolutionalDictionaryLearner:
         mesh_axis: str = "data",
         device,
     ):
-        self.device = resolve_device(device)
+        self.device = canonical_device(device)
         if mesh is not None:
             from ..parallel.mesh import check_mesh_device
 

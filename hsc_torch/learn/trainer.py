@@ -22,7 +22,7 @@ import os
 import numpy as np
 
 from ..config import CodecConfig
-from ..device import resolve_device
+from ..device import canonical_device
 from ..dictionary import MultilevelDictionary
 from ..models.coder import ConvolutionalMatchingPursuit
 from ..ops.encode import feature_map
@@ -60,7 +60,7 @@ class MultilevelTrainer:
         self.iterations = iterations
         self.seed = seed
         self.checkpoint_dir = checkpoint_dir
-        self.device = resolve_device(device)
+        self.device = canonical_device(device)
         if mesh is not None:
             from ..parallel.mesh import check_mesh_device
 

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..device import copy_to_host_async, resolve_device, to_device
+from ..device import canonical_device, copy_to_host_async, to_device
 from ..dictionary import MultilevelDictionary
 from ..io import pack_corpus, unpack_corpus
 from ..ops.decode import mp_decode_batch_torch, mp_decode_integer_batch_torch
@@ -122,7 +122,7 @@ class ConvolutionalMatchingPursuit(nn.Module):
         device,
     ):
         super().__init__()
-        self.device = resolve_device(device)
+        self.device = canonical_device(device)
         self.backend = resolve_backend(backend, self.device)
         n_raw = n_raw if n_raw is not None else int(bank.shape[0])
         # int8 init (hier_init='int8', levels >= 1): the digit planes of the
@@ -270,7 +270,7 @@ class HierarchicalConvolutionalSparseCoder(nn.Module):
         super().__init__()
         self.mld = mld
         self.cfg = mld.config
-        self.device = resolve_device(device)
+        self.device = canonical_device(device)
         self.backend = resolve_backend(backend, self.device)
         self.coders = nn.ModuleList(
             [

@@ -29,11 +29,11 @@ import weakref
 import numpy as np
 import torch
 
-from ..device import to_device
+from ..device import canonical_device, to_device
 from ..models.coder import ConvolutionalMatchingPursuit, HierarchicalConvolutionalSparseCoder
 from ..ops.encode import EncodedBlock, encode_init_batched, quantizer_steps
 from ..utils import device_get_pipelined
-from .mesh import Mesh, canonical_device, check_mesh_device
+from .mesh import Mesh, check_mesh_device
 
 
 _REPLICAS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
@@ -46,7 +46,7 @@ def replica(coder, dev: torch.device):
     `dev` and its `device` attributes pointing there, made once per (coder,
     device) and shared by every encoder and decoder built on the coder."""
     dev = canonical_device(dev)
-    if canonical_device(coder.device) == dev:
+    if coder.device == dev:
         return coder
     per = _REPLICAS.setdefault(coder, {})
     if dev not in per:

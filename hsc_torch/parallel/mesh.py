@@ -13,10 +13,24 @@ shard order:
   ppermute            a copy to the neighbour's device
 
 Devices may repeat: ``make_mesh({"data": 4}, devices=["cuda:0"] * 4)`` is
-a 4-shard mesh on one card, and ``make_mesh({"data": 8}, devices=["cpu"] *
+a 4-shard mesh on one card, ``devices=["cuda:0", "cuda:1"] * 2`` puts
+shard i on card i mod 2, and ``make_mesh({"data": 8}, devices=["cpu"] *
 8)`` is the counterpart of the JAX tests' 8 virtual CPU devices.  Kernel
 launches are asynchronous, so shards on different cards overlap when every
 shard's work is enqueued before the first host read.
+
+Measured on 2 and 4 H100s (`scripts/torch_multicard.py`,
+`scripts/torch_bench_scaling.py`): every path's output is byte-identical
+to the same work on one card, and the profiler shows each card running
+its shards' kernels.  The cards gain little: the data-parallel encode of
+64 flagship blocks a card runs at 0.86 of 2x one card's rate on 2 cards
+and at 0.36 of 4x on 4, slower on 4 cards than on 2; the decode at 0.29
+and 0.15; `CorpusEncoder`'s host-wall rate does not rise, and each card
+idles ~94% of a mesh encode; SP and TP, which move each coefficient's
+winner between cards, run slower on several cards than on one.  Why is
+not measured (PERF.md §7): the split of the host's time per shard and the
+cards' NUMA placement are open, and a host that served the shards in
+series would flatten the curve, not turn it down from 2 cards to 4.
 
 Why not a `torch.distributed` process group for the mesh: NCCL refuses two
 ranks on one GPU, so on a one-card host such a mesh could only have size 1,
@@ -25,8 +39,10 @@ sequence- and tensor-parallel modes (halo, clamped windows, lag masks,
 tie-breaks across shards) would never run on the card.  The repeated-device
 mesh runs that code through the real kernels at any shard count.
 `torch.distributed` keeps the multi-process role it has in the JAX package:
-`initialize_distributed`, `DataParallelEncoder.encode_multihost` and
-`runtime.CorpusEncoder.encode_multihost`.
+`initialize_distributed` (NCCL between cards, rank p on card p),
+`DataParallelEncoder.encode_multihost` and
+`runtime.CorpusEncoder.encode_multihost`, whose processes each journal
+their share, so the journal's writes bound them.
 
 Axis convention (as in the JAX package): 'data' — blocks; 'model' —
 dictionary atoms; 'seq' — the time axis of one long block.
@@ -37,16 +53,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..device import resolve_device
-
-
-def canonical_device(device) -> torch.device:
-    """`device` resolved (`device.resolve_device`), with a CUDA device's
-    index made explicit, so that equal devices compare equal."""
-    dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is None:
-        return torch.device("cuda", torch.cuda.current_device())
-    return dev
+from ..device import canonical_device
 
 
 class Mesh:
@@ -85,8 +92,9 @@ def make_mesh(axes: dict[str, int] | None = None, devices=None) -> Mesh:
 
     Axis order follows dict order.  `devices` may repeat a device (several
     shards on one card or on the CPU); every device is resolved through
-    `device.resolve_device`, so a CUDA device on a host without a card
-    raises.  All devices must be of one type."""
+    `device.canonical_device`, so a CUDA device on a host without a card
+    raises and ``'cuda'`` is the current card.  All devices must be of one
+    type."""
     if devices is None:
         n = torch.cuda.device_count()
         if n == 0:

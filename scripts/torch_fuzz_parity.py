@@ -60,6 +60,7 @@ card has held.  Eight modes:
     python scripts/torch_fuzz_parity.py --three-level --shapes 4 --base-seed 0
     python scripts/torch_fuzz_parity.py --container-f32 --shapes 4 --base-seed 0
     python scripts/torch_fuzz_parity.py --mesh --shapes 4 --base-seed 0
+    python scripts/torch_fuzz_parity.py --mesh --cards 4 --shapes 4 --base-seed 0   # shard i on card i mod 4
 
 `--device` defaults to 'cuda' and raises without a card; `--device cpu`
 runs the plain paths.  One JSON line per shape (seed ``base_seed * 1000 +
@@ -72,6 +73,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -753,9 +755,10 @@ def run_container_f32_shape(seed: int, device: str = "cuda") -> dict:
 MESH_LOOP_COEFS = 48
 
 
-def run_mesh_shape(seed: int, device: str = "cuda") -> dict:
+def run_mesh_shape(seed: int, device: str = "cuda", cards: int | None = None) -> dict:
     """One random geometry (`sample_mesh_shape`: 1-3 levels, `num_select`
-    1-48) on a mesh of 2-4 shards of one device, a ragged corpus of 5-40
+    1-48) on a mesh of 2-4 shards of one device (with `cards`, shard i on
+    card i mod `cards`, the local path on card 0), a ragged corpus of 5-40
     blocks at a batch size of 1-8: `CorpusEncoder(mesh=...)` gives the
     local path's container and rows at the same batch size;
     `DataParallelEncoder` (level 0) and `HierarchicalDataParallelEncoder`
@@ -780,8 +783,9 @@ def run_mesh_shape(seed: int, device: str = "cuda") -> dict:
     n, bs = int(rng.integers(5, 41)), int(rng.integers(1, 9))
     gen = SignalGenerator(mld, rates=float(rng.uniform(2e-3, 1e-2)))
     xs = gen.generate_signals(n, cfg.block_size, seed=seed)
-    mesh = make_mesh({"data": shards}, devices=[dev] * shards)
-    local = CorpusEncoder(mld, device=dev, batch_size=bs)
+    devs = [dev] * shards if cards is None else [torch.device(dev.type, i % cards) for i in range(shards)]
+    mesh = make_mesh({"data": shards}, devices=devs)
+    local = CorpusEncoder(mld, device=devs[0], batch_size=bs)
     sharded = CorpusEncoder(mld, device=dev, batch_size=bs, mesh=mesh)
     t0 = time.perf_counter()
     blob = sharded.encode(xs)
@@ -820,8 +824,8 @@ def run_mesh_shape(seed: int, device: str = "cuda") -> dict:
         sc, iv = quantizer_steps(peak.cpu().numpy(), cfg.amp_bits)
         want = mp_loop(s0.clone(), e0, torch.from_numpy(sc).to(dev), torch.from_numpy(iv).to(dev), mp0.params,
                           **loop_kw)
-        sp_mesh = make_mesh({"seq": shards}, devices=[dev] * shards)
-        tp_mesh = make_mesh({"model": shards}, devices=[dev] * shards)
+        sp_mesh = make_mesh({"seq": shards}, devices=devs)
+        tp_mesh = make_mesh({"model": shards}, devices=devs)
         got = {
             "sp_loop": sp_loop(sp_mesh, sp_shard_scores(sp_mesh, s0[0], cfg.block_size), e0[0], sc[0], iv[0],
                                mp0.gram_t, **loop_kw),
@@ -837,11 +841,14 @@ def run_mesh_shape(seed: int, device: str = "cuda") -> dict:
                     diff = f"{name}: {f} != the local loop's"
             if diff is None and not bits_equal(g.energy_res.reshape(1).cpu(), want.energy_res[:1].cpu()):
                 diff = f"{name}: energy_res != the local loop's"
-    return dict(
+    out = dict(
         seed=seed, ok=diff is None, run_s=round(seconds, 3), shards=shards, blocks=n, batch_size=bs, ns=ns,
         counts=kw["counts"], scales=kw["scales"], block=kw["block_size"], nc=kw["num_coefs"],
         hier_init=cfg.hier_init if cfg.num_levels > 1 else None, bytes=len(blob), sp_tp=single, diff=diff, mesh=True,
     )
+    if cards is not None:
+        out["cards"] = cards
+    return out
 
 
 MODES = {
@@ -876,10 +883,18 @@ def main(argv=None) -> int:
                        help="2- and 3-level containers, mostly with hier_init='f32'")
     modes.add_argument("--mesh", action="store_true", help="ragged corpora on meshes of 2-4 shards of one device")
     ap.add_argument("--device", default="cuda", help="'cuda' (default; raises without a card) or 'cpu'")
+    ap.add_argument("--cards", type=int, default=None,
+                    help="with --mesh: shard i on card i mod N (on the CPU on device cpu:i mod N)")
     args = ap.parse_args(argv)
     resolve_device(args.device)
     mode = next((m for m in MODES if m != "flat" and getattr(args, m)), "flat")
     run, what = MODES[mode]
+    if args.cards is not None:
+        if mode != "mesh":
+            ap.error("--cards goes with --mesh")
+        if args.device != "cpu" and args.cards > torch.cuda.device_count():
+            ap.error(f"--cards {args.cards}: only {torch.cuda.device_count()} card(s) visible")
+        run = functools.partial(run, cards=args.cards)
     results = []
     for i in range(args.shapes):
         seed = args.base_seed * 1000 + i
