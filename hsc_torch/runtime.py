@@ -56,6 +56,7 @@ from .ops.pipeline import encode_batches_pipelined, encode_hierarchical_batches_
 from .oracle.mp import LevelStream, to_distributed
 from .utils import device_get_pipelined
 from .utils.metrics import MetricsLogger
+from .utils.profiling import scope
 
 
 def _journal_name(process_index: int) -> str:
@@ -480,22 +481,23 @@ class CorpusEncoder:
 
     def _emit_batched(self, enc, ids: list[int], payloads: dict[int, bytes], offset: int):
         """Trim a host batched `EncodedBlock` to per-block streams, pack, and
-        journal under global ids ``id + offset``.  Returns (events,
-        payload_bytes, per-block SNRs dB)."""
+        journal under global ids ``id + offset``, in one `hsc:encode.pack`
+        span.  Returns (events, payload_bytes, per-block SNRs dB)."""
         events = 0
         total_bytes = 0
         snrs: list[float] = []
-        for bid, stream in zip(ids, level_streams(enc)):
-            n = int(stream.positions.shape[0])
-            payload, kept = self._pack_block(stream)
-            payloads[bid] = payload
-            total_bytes += len(payload)
-            # metrics count stored events; a CBR-truncated block's quality
-            # is unknown here (NaN, filtered from the mean)
-            events += kept
-            snrs.append(stream.snr_db() if kept == n else float("nan"))
-            if self.journal:
-                self.journal.record(bid + offset, payload)
+        with scope("hsc:encode.pack"):
+            for bid, stream in zip(ids, level_streams(enc)):
+                n = int(stream.positions.shape[0])
+                payload, kept = self._pack_block(stream)
+                payloads[bid] = payload
+                total_bytes += len(payload)
+                # metrics count stored events; a CBR-truncated block's quality
+                # is unknown here (NaN, filtered from the mean)
+                events += kept
+                snrs.append(stream.snr_db() if kept == n else float("nan"))
+                if self.journal:
+                    self.journal.record(bid + offset, payload)
         return events, total_bytes, snrs
 
     def _log_encode_metrics(
@@ -527,28 +529,33 @@ class CorpusEncoder:
         journaled under global ids ``local + offset``: one level through the
         pipelined three-stage path, several through the level-pipelined
         path; batches are uploaded per pipeline window.  With a mesh, the
-        data-parallel path (`_encode_dp`)."""
+        data-parallel path (`_encode_dp`).  Spans: `hsc:encode.gather` (the
+        host batches), `hsc:encode.pipeline` (first upload to events on the
+        host, the interval the `encode_batch` record's `seconds` times),
+        `hsc:encode.pack` a batch."""
         if self.dp is not None:
             self._encode_dp(blocks, todo, payloads, offset)
             return
         batches = []
         id_groups = []
-        for start in range(0, len(todo), self.batch_size):
-            ids = todo[start : start + self.batch_size]
-            batches.append(blocks[ids][:, :, None])
-            id_groups.append(ids)
+        with scope("hsc:encode.gather"):
+            for start in range(0, len(todo), self.batch_size):
+                ids = todo[start : start + self.batch_size]
+                batches.append(blocks[ids][:, :, None])
+                id_groups.append(ids)
         if not batches:
             return
-        t0 = time.perf_counter()
-        if self.cfg.num_levels == 1:
-            mp = self.coder.coders[0].mp
-            encs = encode_batches_pipelined(
-                batches, mp.params, device=self.device, backend=mp.backend, **mp.settings
-            )
-        else:
-            encs = encode_hierarchical_batches_pipelined(batches, self.coder)[-1]
-        encs = device_get_pipelined(encs)
-        dt = time.perf_counter() - t0
+        with scope("hsc:encode.pipeline"):
+            t0 = time.perf_counter()
+            if self.cfg.num_levels == 1:
+                mp = self.coder.coders[0].mp
+                encs = encode_batches_pipelined(
+                    batches, mp.params, device=self.device, backend=mp.backend, **mp.settings
+                )
+            else:
+                encs = encode_hierarchical_batches_pipelined(batches, self.coder)[-1]
+            encs = device_get_pipelined(encs)
+            dt = time.perf_counter() - t0
         events = 0
         total_bytes = 0
         snrs: list[float] = []
@@ -563,14 +570,18 @@ class CorpusEncoder:
         """Mesh-sharded encode: super-batches of ``batch_size`` x shards
         blocks through the `HierarchicalDataParallelEncoder` (each shard gets
         `batch_size` blocks; the last super-batch pads), one metrics record
-        per super-batch."""
+        per super-batch; the spans of `_compute_payloads`, each once a
+        super-batch."""
         top = self.cfg.num_levels - 1
         super_batch = self.batch_size * self.dp.num_shards
         for start in range(0, len(todo), super_batch):
             ids = todo[start : start + super_batch]
-            t0 = time.perf_counter()
-            enc = self.dp.encode(blocks[ids])[top]
-            dt = time.perf_counter() - t0
+            with scope("hsc:encode.gather"):
+                batch = blocks[ids]
+            with scope("hsc:encode.pipeline"):
+                t0 = time.perf_counter()
+                enc = self.dp.encode(batch)[top]
+                dt = time.perf_counter() - t0
             events, total_bytes, snrs = self._emit_batched(enc, ids, payloads, offset)
             self._log_encode_metrics(
                 len(ids), dt, events, total_bytes, snrs, shards=self.dp.num_shards
@@ -579,30 +590,32 @@ class CorpusEncoder:
     def encode(self, blocks: np.ndarray, index: bool = False) -> bytes:
         """Encode ``[B, block_size]`` into the container format; resumable —
         journaled blocks are skipped.  `index=True` appends the seek-index
-        footer from the offsets the assembly already knows."""
+        footer from the offsets the assembly already knows.  The container's
+        assembly is one `hsc:encode.assemble` span."""
         blocks = self._validate_blocks(blocks)
         nb = blocks.shape[0]
         done = self.journal.done_blocks if self.journal else set()
         todo = [b for b in range(nb) if b not in done]
         payloads: dict[int, bytes] = {}
         self._compute_payloads(blocks, todo, payloads)
-        records = (
-            payloads[b] if b in payloads else self.journal.read(b)
-            for b in range(nb)
-        )
-        if self.target_bps is not None and self.rate_mode == "corpus":
-            full = list(records)
-            records = apply_corpus_cbr(self.cfg, full, self.target_bps, self.distributed)
-            self.metrics.log(
-                {
-                    "kind": "corpus_cbr",
-                    "blocks": nb,
-                    "budget_bytes": int(self.target_bps * self.cfg.block_size * nb / 8),
-                    "emitted_bytes": sum(len(r) for r in records),
-                    "full_bytes": sum(len(r) for r in full),
-                }
+        with scope("hsc:encode.assemble"):
+            records = (
+                payloads[b] if b in payloads else self.journal.read(b)
+                for b in range(nb)
             )
-        return _join_container(self.cfg, records, nb, index)
+            if self.target_bps is not None and self.rate_mode == "corpus":
+                full = list(records)
+                records = apply_corpus_cbr(self.cfg, full, self.target_bps, self.distributed)
+                self.metrics.log(
+                    {
+                        "kind": "corpus_cbr",
+                        "blocks": nb,
+                        "budget_bytes": int(self.target_bps * self.cfg.block_size * nb / 8),
+                        "emitted_bytes": sum(len(r) for r in records),
+                        "full_bytes": sum(len(r) for r in full),
+                    }
+                )
+            return _join_container(self.cfg, records, nb, index)
 
     # -- multi-process orchestration ----------------------------------------
 
@@ -654,15 +667,16 @@ class CorpusEncoder:
         if grouped:
             dist.barrier()
         if self.process_index == 0:
-            return assemble_container(
-                self.cfg,
-                os.path.dirname(self.journal._jpath),
-                n_global,
-                n_proc,
-                distributed=self.distributed,
-                target_bps=self.target_bps,
-                rate_mode=self.rate_mode,
-            )
+            with scope("hsc:encode.assemble"):
+                return assemble_container(
+                    self.cfg,
+                    os.path.dirname(self.journal._jpath),
+                    n_global,
+                    n_proc,
+                    distributed=self.distributed,
+                    target_bps=self.target_bps,
+                    rate_mode=self.rate_mode,
+                )
         return None
 
     # -- decode -------------------------------------------------------------
@@ -690,7 +704,12 @@ class CorpusEncoder:
         (at most one stream per level per block, ascending) is one batched
         decode per level, summed on the host per block in level order; any
         other shape decodes block by block through the coder's single-block
-        `reconstruct`, streams in container order."""
+        `reconstruct`, streams in container order.
+
+        Spans, disjoint and none across a `yield`: `hsc:decode.unpack` a
+        chunk pulled from `blocks`, `hsc:decode.dispatch` a decode unit (an
+        exotic chunk's per-block loop is one), `hsc:decode.drain` a unit's
+        wait, copy out of pinned memory and host sum."""
         top = cfg.num_levels - 1
         it = iter(blocks)
         # pending: (chunk index, block ids or None for the whole chunk, the
@@ -707,30 +726,33 @@ class CorpusEncoder:
             return dec(streams, level=level, mode=mode, rep_bits=rep_bits)
 
         def drain_one():
-            ci, ids, copy = pending.popleft()
-            rows = copy.numpy()[:, :, 0]
-            if ids is None:
-                outs[ci] = rows
-            else:
-                for j, b in enumerate(ids):
-                    outs[ci][b] += rows[j]
-            units_left[ci] -= 1
+            with scope("hsc:decode.drain"):
+                ci, ids, copy = pending.popleft()
+                rows = copy.numpy()[:, :, 0]
+                if ids is None:
+                    outs[ci] = rows
+                else:
+                    for j, b in enumerate(ids):
+                        outs[ci][b] += rows[j]
+                units_left[ci] -= 1
 
-        def submit(ci, ids, dev):
+        def submit(ci, ids, streams, level):
             # the copy-back starts now, behind this decode on the stream;
-            # drain_one waits for it alone
-            pending.append((ci, ids, copy_to_host_async(dev)))
+            # drain_one waits for it alone, after the dispatch's span
+            with scope("hsc:decode.dispatch"):
+                pending.append((ci, ids, copy_to_host_async(decode(streams, level))))
             if len(pending) >= 4:
                 drain_one()
 
         ci = 0
         while True:
-            chunk = list(islice(it, max(self.batch_size, 1)))
+            with scope("hsc:decode.unpack"):
+                chunk = list(islice(it, max(self.batch_size, 1)))
             if not chunk:
                 break
             if all(len(s) == 1 and s[0][0] == top for s in chunk):
                 units_left[ci] = 1
-                submit(ci, None, decode([s[0][1] for s in chunk], top))
+                submit(ci, None, [s[0][1] for s in chunk], top)
             elif all(
                 [lv for lv, _ in streams] == sorted({lv for lv, _ in streams})
                 for streams in chunk
@@ -743,16 +765,17 @@ class CorpusEncoder:
                 units_left[ci] = len(by_level)
                 for level in sorted(by_level):
                     ids = [b for b, _ in by_level[level]]
-                    submit(ci, ids, decode([s for _, s in by_level[level]], level))
+                    submit(ci, ids, [s for _, s in by_level[level]], level)
             else:
                 # exotic (several streams of one level in one block): the
                 # per-block host loop in stream order, not pipelined
-                out = np.zeros((len(chunk), cfg.block_size), np.float32)
-                for b, streams in enumerate(chunk):
-                    for level, stream in streams:
-                        out[b] += self.coder.reconstruct(
-                            stream, level=level, mode=mode, rep_bits=rep_bits
-                        )
+                with scope("hsc:decode.dispatch"):
+                    out = np.zeros((len(chunk), cfg.block_size), np.float32)
+                    for b, streams in enumerate(chunk):
+                        for level, stream in streams:
+                            out[b] += self.coder.reconstruct(
+                                stream, level=level, mode=mode, rep_bits=rep_bits
+                            )
                 outs[ci] = out
                 units_left[ci] = 0
             ci += 1
@@ -797,7 +820,8 @@ class CorpusEncoder:
         rows = list(self.decode_stream(blob, indices=list(indices)))
         if not rows:
             return np.zeros((0, self.cfg.block_size), dtype=np.float32)
-        return np.stack(rows)
+        with scope("hsc:decode.stack"):
+            return np.stack(rows)
 
     def decode(self, blob: bytes) -> np.ndarray:
         """Decode a container -> ``[n_blocks, block_size]`` float32."""
@@ -809,7 +833,8 @@ class CorpusEncoder:
         if not parts:  # empty container (zero blocks)
             out = np.zeros((0, cfg.block_size), dtype=np.float32)
         else:
-            out = np.concatenate(parts, axis=0) if len(parts) > 1 else parts[0]
+            with scope("hsc:decode.stack"):
+                out = np.concatenate(parts, axis=0) if len(parts) > 1 else parts[0]
         dt = time.perf_counter() - t0
         self.metrics.log(
             {
@@ -866,7 +891,9 @@ class CorpusReader:
 
     def __getitem__(self, i) -> np.ndarray:
         if isinstance(i, slice):
-            return np.stack(list(self.rows(*i.indices(self.n_blocks)[:2])))
+            rows = list(self.rows(*i.indices(self.n_blocks)[:2]))
+            with scope("hsc:decode.stack"):
+                return np.stack(rows)
         i = int(i)
         if i < 0:
             i += self.n_blocks
