@@ -84,21 +84,23 @@ def pad_streams(streams, cap: int):
 
 
 def level_streams(enc: EncodedBlock) -> list[LevelStream]:
-    """Trim a host batched `EncodedBlock` to per-block streams."""
-    out = []
-    for b in range(enc.count.shape[0]):
-        n = int(enc.count[b])
-        out.append(
-            LevelStream(
-                positions=np.asarray(enc.positions[b][:n], np.int32),
-                atoms=np.asarray(enc.atoms[b][:n], np.int32),
-                codes=np.asarray(enc.codes[b][:n], np.int32),
-                scale=np.float32(enc.scale[b]),
-                energy0=float(enc.energy0[b]),
-                energy_res=float(enc.energy_res[b]),
-            )
+    """Trim a host batched `EncodedBlock` to per-block streams (views of
+    its event arrays; the per-block scalars read in one pass each)."""
+    pos, atoms, codes = (np.asarray(a, np.int32) for a in (enc.positions, enc.atoms, enc.codes))
+    scale = np.asarray(enc.scale, np.float32)
+    e0 = np.asarray(enc.energy0).tolist()
+    e_res = np.asarray(enc.energy_res).tolist()
+    return [
+        LevelStream(
+            positions=pos[b, :n],
+            atoms=atoms[b, :n],
+            codes=codes[b, :n],
+            scale=scale[b],
+            energy0=e0[b],
+            energy_res=e_res[b],
         )
-    return out
+        for b, n in enumerate(np.asarray(enc.count).tolist())
+    ]
 
 
 class ConvolutionalMatchingPursuit(nn.Module):

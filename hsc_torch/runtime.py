@@ -49,6 +49,7 @@ from .io.bitstream import (
     scan_block_offsets,
     unpack_block,
 )
+from . import record_pack
 from .io.journal import EncodeJournal
 from .device import copy_to_host_async
 from .models.coder import HierarchicalConvolutionalSparseCoder, level_streams
@@ -57,6 +58,11 @@ from .oracle.mp import LevelStream, to_distributed
 from .utils import device_get_pipelined
 from .utils.metrics import MetricsLogger
 from .utils.profiling import scope
+
+# blocks packed since import (or since a caller reset them to 0): by the
+# batched native record packer, and one by one through `_pack_block`
+BLOCKS_PACKED_BATCHED = 0
+BLOCKS_PACKED_SINGLY = 0
 
 
 def _journal_name(process_index: int) -> str:
@@ -479,17 +485,40 @@ class CorpusEncoder:
             )
         return blocks
 
+    def _packs_batched(self) -> bool:
+        """Whether a batch's records come from one native call
+        (`record_pack`): only where every block would get `_emit_record`'s
+        plain top form (fixed entropy, no rate target, not split across
+        levels) and the packer is built and takes the event width."""
+        return (
+            self.cfg.entropy == "fixed"
+            and self.target_bps is None
+            and not (self.distributed and self.cfg.num_levels > 1)
+            and record_pack.event_bits_ok(self.cfg, self.cfg.num_levels - 1)
+            and record_pack.available()
+        )
+
     def _emit_batched(self, enc, ids: list[int], payloads: dict[int, bytes], offset: int):
         """Trim a host batched `EncodedBlock` to per-block streams, pack, and
         journal under global ids ``id + offset``, in one `hsc:encode.pack`
-        span.  Returns (events, payload_bytes, per-block SNRs dB)."""
+        span.  The records come from one native call where `_packs_batched`,
+        else block by block.  Returns (events, payload_bytes, per-block SNRs
+        dB)."""
+        global BLOCKS_PACKED_BATCHED, BLOCKS_PACKED_SINGLY
         events = 0
         total_bytes = 0
         snrs: list[float] = []
         with scope("hsc:encode.pack"):
-            for bid, stream in zip(ids, level_streams(enc)):
+            streams = level_streams(enc)
+            if self._packs_batched():
+                records = record_pack.pack_records(self.cfg, self.cfg.num_levels - 1, streams)
+                packed = ((r, len(s.positions)) for r, s in zip(records, streams))
+                BLOCKS_PACKED_BATCHED += len(records)
+            else:
+                packed = map(self._pack_block, streams)
+                BLOCKS_PACKED_SINGLY += len(streams)
+            for bid, stream, (payload, kept) in zip(ids, streams, packed):
                 n = int(stream.positions.shape[0])
-                payload, kept = self._pack_block(stream)
                 payloads[bid] = payload
                 total_bytes += len(payload)
                 # metrics count stored events; a CBR-truncated block's quality
