@@ -19,10 +19,22 @@ overlap.  The JAX package falls back to an XLA loop where its Pallas kernel
 cannot host a `num_select`; the port's kernel takes every ``num_select >=
 1``, so there is no such branch.  Per block the arithmetic is the local
 path's, so the streams are byte-identical to it.
+
+Spans (`utils.profiling.scope`, a no-op unless a profiler runs), each
+entered once a batch (the init, peaks and loop spans once a level), none
+inside another: ``hsc:mesh.upload`` (the pad and every shard's upload),
+``hsc:mesh.init`` (every shard's init enqueued), ``hsc:mesh.peaks`` (the
+waits on the peaks and the host quantizer steps), ``hsc:mesh.loop`` (every
+shard's loop enqueued), ``hsc:mesh.handoff`` (a hierarchy's hand-off to
+the next level), ``hsc:mesh.collect`` (`gather_blocks`: the waits on the
+streams and their concatenation in block order).  `SHARD_BATCHES[i]`
+counts the batches uploaded to shard i, as each shard's upload is queued,
+one a batch whatever the levels.
 """
 
 from __future__ import annotations
 
+import collections
 import copy
 import weakref
 
@@ -33,8 +45,10 @@ from ..device import canonical_device, to_device
 from ..models.coder import ConvolutionalMatchingPursuit, HierarchicalConvolutionalSparseCoder
 from ..ops.encode import EncodedBlock, encode_init_batched, quantizer_steps
 from ..utils import device_get_pipelined
+from ..utils.profiling import scope
 from .mesh import Mesh, check_mesh_device
 
+SHARD_BATCHES: collections.Counter = collections.Counter()
 
 _REPLICAS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 
@@ -71,6 +85,24 @@ def pad_rows(a: np.ndarray, rows: int) -> np.ndarray:
     return np.concatenate([a, np.zeros((pad,) + a.shape[1:], a.dtype)])
 
 
+def upload_shard(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """One shard's host blocks on `dev`, queued without a host wait.  On a
+    card NumPy copies them into a pinned block of PyTorch's caching host
+    allocator on the calling thread, and the block is uploaded with
+    ``non_blocking=True``; the allocator reuses it only once the copy has
+    run.  `device.to_device` stages through ``pin_memory()``, whose copy
+    runs over torch's intra-op threads: on a host whose cores are shared,
+    a parallel region waits for its slowest thread, and a 4-MiB staging
+    copy took from 0.03 ms to 1.8 s on a 32-core host of 4 H100s, against
+    at most 0.5 ms for NumPy's copy (PERF.md §6).  Elsewhere it is
+    `device.to_device`."""
+    if dev.type != "cuda":
+        return to_device(np.ascontiguousarray(a), dev)
+    host = torch.empty(a.shape, dtype=torch.from_numpy(np.empty(0, a.dtype)).dtype, pin_memory=True)
+    np.copyto(host.numpy(), a)
+    return host.to(dev, non_blocking=True)
+
+
 def gather_blocks(encs: list[EncodedBlock], b: int) -> EncodedBlock:
     """Per-shard device `EncodedBlock`s -> one host `EncodedBlock` in shard
     (= original block) order, trimmed to `b` blocks; every shard's copies
@@ -105,40 +137,52 @@ class DataParallelEncoder:
     def upload(self, padded: np.ndarray) -> list[torch.Tensor]:
         """Host ``[B, ...]`` (B a multiple of the shard count) -> one
         contiguous slice of B / S blocks per shard, on its device (uploads
-        queued without a host wait, `device.to_device`)."""
+        queued without a host wait, `upload_shard`)."""
         per = padded.shape[0] // self.num_shards
-        return [
-            to_device(np.ascontiguousarray(padded[i * per : (i + 1) * per]), dev)
-            for i, dev in enumerate(self.devices)
-        ]
+        shards = []
+        for i, dev in enumerate(self.devices):
+            shards.append(upload_shard(padded[i * per : (i + 1) * per], dev))
+            SHARD_BATCHES[i] += 1
+        return shards
+
+    def pad_upload(self, xs: np.ndarray) -> tuple[list[torch.Tensor], int]:
+        """Host ``[B, N]`` (or ``[B, N, C]``) blocks -> (the padded shards
+        on their devices, B), in one `hsc:mesh.upload` span."""
+        with scope("hsc:mesh.upload"):
+            xs = np.asarray(xs, dtype=np.float32)
+            if xs.ndim == 2:
+                xs = xs[:, :, None]
+            padded, b = self.pad_batch(xs)
+            return self.upload(padded), b
 
     def _finish(self, inits) -> list[EncodedBlock]:
         """Stages 2 and 3 on every shard's ``(scores0, e0, peak)``."""
-        peaks = np.concatenate(device_get_pipelined([p for _, _, p in inits]))
-        scale, inv = quantizer_steps(peaks, self.mp.settings["amp_bits"])
+        with scope("hsc:mesh.peaks"):
+            peaks = np.concatenate(device_get_pipelined([p for _, _, p in inits]))
+            scale, inv = quantizer_steps(peaks, self.mp.settings["amp_bits"])
         out, lo = [], 0
-        for dev, (s0, e0, _) in zip(self.devices, inits):
-            hi = lo + s0.shape[0]
-            out.append(replica(self.mp, dev).loop_stage(s0, e0, scale[lo:hi], inv[lo:hi]))
-            lo = hi
+        with scope("hsc:mesh.loop"):
+            for dev, (s0, e0, _) in zip(self.devices, inits):
+                hi = lo + s0.shape[0]
+                out.append(replica(self.mp, dev).loop_stage(s0, e0, scale[lo:hi], inv[lo:hi]))
+                lo = hi
         return out
 
     def encode(self, xs: np.ndarray) -> EncodedBlock:
         """Encode ``[B, N]`` (or ``[B, N, C]``) blocks; B padded to shards.
         Returns one host `EncodedBlock` of B blocks."""
-        xs = np.asarray(xs, dtype=np.float32)
-        if xs.ndim == 2:
-            xs = xs[:, :, None]
-        padded, b = self.pad_batch(xs)
-        return gather_blocks(self.encode_device(self.upload(padded)), b)
+        shards, b = self.pad_upload(xs)
+        encs = self.encode_device(shards)
+        with scope("hsc:mesh.collect"):
+            return gather_blocks(encs, b)
 
     def encode_device(self, shards: list[torch.Tensor]) -> list[EncodedBlock]:
         """Sharded-in, sharded-out encode of already-placed ``[B_i, N, C]``
         blocks, one tensor per shard on its device -> one device
         `EncodedBlock` per shard."""
-        return self._finish([
-            encode_init_batched(x, replica(self.mp, dev).bank) for dev, x in zip(self.devices, shards)
-        ])
+        with scope("hsc:mesh.init"):
+            inits = [encode_init_batched(x, replica(self.mp, dev).bank) for dev, x in zip(self.devices, shards)]
+        return self._finish(inits)
 
     def encode_device_int(self, events: list[tuple]) -> list[EncodedBlock]:
         """Sharded-in, sharded-out int8-init encode (hier_init='int8',
@@ -146,9 +190,9 @@ class DataParallelEncoder:
         `ConvolutionalMatchingPursuit.init_int_batched` takes them
         (``positions, atoms, codes, count, prev_scale, n_map``).  On a card
         the int8-init kernels read the events; no dense map is built."""
-        return self._finish([
-            replica(self.mp, dev).init_int_batched(*ev) for dev, ev in zip(self.devices, events)
-        ])
+        with scope("hsc:mesh.init"):
+            inits = [replica(self.mp, dev).init_int_batched(*ev) for dev, ev in zip(self.devices, events)]
+        return self._finish(inits)
 
     @staticmethod
     def multihost_split(n_global: int, n_processes: int) -> list[tuple[int, int]]:
@@ -231,18 +275,17 @@ class HierarchicalDataParallelEncoder:
             encs = dp.encode_device_int(seq) if dp.mp.int8_init else dp.encode_device(seq)
             out.append(encs)
             if level + 1 < self.cfg.num_levels:
-                seq = [self.coder.handoff(level, e) for e in encs]
+                with scope("hsc:mesh.handoff"):
+                    seq = [self.coder.handoff(level, e) for e in encs]
         return out
 
     def encode(self, xs: np.ndarray) -> list[EncodedBlock]:
         """Encode ``[B, block_size]`` blocks; returns one batched host
         `EncodedBlock` per level, trimmed to the original block count."""
-        xs = np.asarray(xs, dtype=np.float32)
-        if xs.ndim == 2:
-            xs = xs[:, :, None]
-        first = self.levels[0]
-        padded, b = first.pad_batch(xs)
-        return [gather_blocks(encs, b) for encs in self.encode_device(first.upload(padded))]
+        shards, b = self.levels[0].pad_upload(xs)
+        levels = self.encode_device(shards)
+        with scope("hsc:mesh.collect"):
+            return [gather_blocks(encs, b) for encs in levels]
 
 
 class DataParallelDecoder:

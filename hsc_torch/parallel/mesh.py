@@ -19,18 +19,17 @@ shard i on card i mod 2, and ``make_mesh({"data": 8}, devices=["cpu"] *
 launches are asynchronous, so shards on different cards overlap when every
 shard's work is enqueued before the first host read.
 
-Measured on 2 and 4 H100s (`scripts/torch_multicard.py`,
-`scripts/torch_bench_scaling.py`): every path's output is byte-identical
-to the same work on one card, and the profiler shows each card running
-its shards' kernels.  The cards gain little: the data-parallel encode of
-64 flagship blocks a card runs at 0.86 of 2x one card's rate on 2 cards
-and at 0.36 of 4x on 4, slower on 4 cards than on 2; the decode at 0.29
-and 0.15; `CorpusEncoder`'s host-wall rate does not rise, and each card
-idles ~94% of a mesh encode; SP and TP, which move each coefficient's
-winner between cards, run slower on several cards than on one.  Why is
-not measured (PERF.md §7): the split of the host's time per shard and the
-cards' NUMA placement are open, and a host that served the shards in
-series would flatten the curve, not turn it down from 2 cards to 4.
+Every path's output is byte-identical to the same work on one card
+(`scripts/torch_multicard.py` on 2 and 4 H100s), and the profiler shows
+each card running its shards' kernels.  How fast the mesh ingests is the
+benchmark's cell `flat-ingest-mesh4` (`BENCHMARK.json`:
+`CorpusEncoder(mesh=)` over 4 cards, `encode_mb_s`), and where each card
+idles, the parallel layer's spans (`parallel/dp.py`, the cell's
+`idle_mesh_*_pct.mesh`; PERF.md §5): a super-batch's upload, init, peaks,
+loop and collect run one after another on the host, and the next
+super-batch starts after the pack, so the cards idle most of a call.  SP
+and TP, which move each coefficient's winner between cards, run slower on
+several cards than on one (`scripts/torch_multicard.py`).
 
 Why not a `torch.distributed` process group for the mesh: NCCL refuses two
 ranks on one GPU, so on a one-card host such a mesh could only have size 1,

@@ -600,7 +600,8 @@ class CorpusEncoder:
         blocks through the `HierarchicalDataParallelEncoder` (each shard gets
         `batch_size` blocks; the last super-batch pads), one metrics record
         per super-batch; the spans of `_compute_payloads`, each once a
-        super-batch."""
+        super-batch, with `parallel.dp`'s ``hsc:mesh.*`` inside the
+        pipeline's."""
         top = self.cfg.num_levels - 1
         super_batch = self.batch_size * self.dp.num_shards
         for start in range(0, len(todo), super_batch):

@@ -53,7 +53,9 @@ def scope(name: str):
     `CorpusReader`): ``hsc:decode.unpack`` (a chunk of blocks unpacked),
     ``.dispatch`` (a decode unit's staging, uploads, launch and the start
     of its copy-back), ``.drain`` (its wait, copy out of pinned memory and
-    host sum), ``.stack`` (the rows joined into one array).  In a trace
+    host sum), ``.stack`` (the rows joined into one array).  On a mesh
+    the parallel layer's ``hsc:mesh.*`` spans (`parallel/dp.py`) split
+    each ``hsc:encode.pipeline`` by stage.  In a trace
     that holds the card (`profile_region` with a CUDA device, e.g.
     ``scripts/torch_run_experiment.py --profile-dir``) they sit on the
     kernels' clock."""

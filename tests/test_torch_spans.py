@@ -44,8 +44,13 @@ def _corpus(mld):
     return SignalGenerator(mld, rates=rates).generate_signals(N_BLOCKS, cfg.block_size, seed=3)
 
 
+MESH_SPANS = {f"hsc:mesh.{s}" for s in ("upload", "init", "peaks", "loop", "handoff", "collect")}
+
+
 def _traced(fn, tmp_path):
-    """fn()'s result and its `hsc:` spans as (name, start, end), in order."""
+    """fn()'s result and its runtime spans (`hsc:encode.*`, `hsc:decode.*`)
+    as (name, start, end), in order.  Every other `hsc:` span must be one
+    of the parallel layer's `hsc:mesh.*`, inside an `hsc:encode.pipeline`."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         out = fn()
     path = tmp_path / "trace.json"
@@ -57,7 +62,14 @@ def _traced(fn, tmp_path):
         for e in events
         if e.get("cat") == "user_annotation" and e.get("name", "").startswith("hsc:")
     )
-    return out, [(name, lo, hi) for lo, hi, name in spans]
+    runtime = [(name, lo, hi) for lo, hi, name in spans if name.startswith(("hsc:encode.", "hsc:decode."))]
+    pipelines = [(lo, hi) for name, lo, hi in runtime if name == "hsc:encode.pipeline"]
+    for lo, hi, name in spans:
+        if name.startswith(("hsc:encode.", "hsc:decode.")):
+            continue
+        assert name in MESH_SPANS, f"unknown span {name}"
+        assert any(p_lo <= lo and hi <= p_hi for p_lo, p_hi in pipelines), f"{name} outside the pipeline"
+    return out, runtime
 
 
 def _counts(spans) -> dict:
