@@ -315,8 +315,14 @@ class DataParallelDecoder:
         """Sharded `reconstruct_batch_device`: the rows ``[B, block_size,
         1]`` on the first shard's device, byte-identical to the local
         path's."""
-        *arrays, level, mode = self.coder._decode_arrays(streams, level, mode)
-        b = arrays[0].shape[0]
+        return self.decode_padded_device(*self.coder._decode_arrays(streams, level, mode), rep_bits)
+
+    def decode_padded_device(self, pos, atm, cds, cnt, scl, level, mode, rep_bits) -> torch.Tensor:
+        """`decode_batch_device` of the padded host arrays (`pad_streams`,
+        `record_pack.unpack_records`): the sharded
+        `HierarchicalConvolutionalSparseCoder._decode_device_call`."""
+        arrays = (pos, atm, cds, cnt, scl)
+        b = pos.shape[0]
         rows = b + (-b) % self.num_shards
         per = rows // self.num_shards
         arrays = [pad_rows(a, rows) for a in arrays]

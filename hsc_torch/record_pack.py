@@ -1,15 +1,20 @@
-"""ctypes binding for the batched block-record packer
+"""ctypes binding for the batched block-record packer and unpacker
 (hsc_torch/csrc/record_pack.cpp).
 
 `pack_records` writes a batch's fixed-entropy top-form block records in one
 native call into one buffer and slices them out, each byte-identical to
 `runtime._emit_record(cfg, stream, False)`; `runtime.CorpusEncoder.
-_emit_batched` takes it where every block would get that form.  The
+_emit_batched` takes it where every block would get that form.
+`unpack_records` is the inverse for a decode chunk: the records at given
+offsets of a container straight into the decode's padded arrays, equal to
+`io.bitstream.unpack_block` then `models.coder.pad_streams`;
+`runtime.CorpusEncoder._decode_chunks` takes it for fixed-entropy
+containers and unpacks block by block where it gives up.  The
 library is compiled on demand with g++, cached under
 ``build/hsc_torch_record_pack/`` at the repository root keyed on a hash of
 the source, as `io.native` builds `csrc/bitpack.cpp`.  When g++ is
 missing, the build fails or ``HSC_TPU_NO_NATIVE`` is set, `available()` is
-False and the encoder packs block by block.
+False and the encoder packs, and the decode unpacks, block by block.
 """
 
 from __future__ import annotations
@@ -70,6 +75,11 @@ def _load():
     i32 = ctypes.c_int32
     lib.hsc_pack_records.argtypes = [p] * 5 + [i32] * 6 + [p, p]
     lib.hsc_pack_records.restype = ctypes.c_int64
+    i64 = ctypes.c_int64
+    lib.hsc_unpack_records.argtypes = (
+        [p, i64, p] + [i32] * 6 + [i64, i64, i32] + [p] * 5
+    )
+    lib.hsc_unpack_records.restype = i32
     _lib = lib
     return _lib
 
@@ -120,3 +130,35 @@ def pack_records(cfg: CodecConfig, level: int, streams) -> list[bytes]:
     blob = out[:total].tobytes()
     ends = offsets.tolist()
     return [blob[ends[b] : ends[b + 1]] for b in range(nb)]
+
+
+def unpack_records(cfg: CodecConfig, level: int, data, offsets, cap: int):
+    """The padded decode arrays ``(pos, atm, cds, cnt, scl)`` ([B, cap]
+    int32 three times, [B] int32, [B] float32) of the blocks whose records
+    start at `offsets` in `data` (bytes, an mmap or any buffer, read in
+    place), from one native call: equal to `io.bitstream.unpack_block` of
+    each then `models.coder.pad_streams(streams, cap)`.  None where the
+    library is not available, or a record is not one fixed-entropy stream
+    of `level`, holds more than `cap` events, runs past the buffer or fails
+    a range check of `unpack_stream`: the caller then unpacks those blocks
+    one by one, which raises the per-block error."""
+    lib = _load()
+    if lib is None or cfg.entropy != "fixed":
+        return None
+    # a view for the call alone: an mmap with a view open cannot close
+    buf = np.frombuffer(data, np.uint8)
+    offs = np.ascontiguousarray(offsets, np.int64)
+    nb = offs.shape[0]
+    events = np.empty((3, nb, cap), np.int32)
+    cnt = np.empty(nb, np.int32)
+    scl = np.empty(nb, np.float32)
+    status = lib.hsc_unpack_records(
+        buf.ctypes.data, buf.shape[0], offs.ctypes.data, nb, level,
+        cfg.pos_bits(level), cfg.atom_bits(level), cfg.amp_bits, cfg.amp_maxcode,
+        cfg.num_positions(level), cfg.counts_with_singletons[level], cap,
+        events[0].ctypes.data, events[1].ctypes.data, events[2].ctypes.data,
+        cnt.ctypes.data, scl.ctypes.data,
+    )
+    if status:
+        return None
+    return events[0], events[1], events[2], cnt, scl

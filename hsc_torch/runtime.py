@@ -32,6 +32,7 @@ import struct
 import time
 from collections import deque
 from itertools import islice
+from typing import NamedTuple
 
 import numpy as np
 
@@ -63,6 +64,19 @@ from .utils.profiling import scope
 # batched native record packer, and one by one through `_pack_block`
 BLOCKS_PACKED_BATCHED = 0
 BLOCKS_PACKED_SINGLY = 0
+# blocks a decode unpacked since import (or since a caller reset them to 0):
+# by the batched native record unpacker, a chunk a call, and one by one
+# through `io.bitstream.unpack_block`
+BLOCKS_UNPACKED_BATCHED = 0
+BLOCKS_UNPACKED_SINGLY = 0
+
+
+class _Records(NamedTuple):
+    """A decode's blocks as records: the container's bytes (an mmap or any
+    buffer) and each block's record offset in them, in decode order."""
+
+    data: object
+    offsets: np.ndarray
 
 
 def _journal_name(process_index: int) -> str:
@@ -721,6 +735,37 @@ class CorpusEncoder:
                     f"this dictionary ({getattr(self.cfg, field)})"
                 )
 
+    def _chunks(self, cfg, blocks):
+        """Yield the chunks of `_decode_chunks`'s `blocks`, `batch_size`
+        blocks each.  From `_Records` a chunk is the padded decode arrays of
+        one `record_pack.unpack_records` call; else, and where that call
+        gives up, a list of per-block ``[(level, stream)]`` from
+        `unpack_block` (which raises on a faulty record).  Counts each
+        chunk's blocks in `BLOCKS_UNPACKED_BATCHED` or
+        `BLOCKS_UNPACKED_SINGLY`."""
+        global BLOCKS_UNPACKED_BATCHED, BLOCKS_UNPACKED_SINGLY
+        size = max(self.batch_size, 1)
+        if not isinstance(blocks, _Records):
+            it = iter(blocks)
+            while chunk := list(islice(it, size)):
+                BLOCKS_UNPACKED_SINGLY += len(chunk)
+                yield chunk
+            return
+        data, offsets = blocks
+        top = cfg.num_levels - 1
+        # `_decode_arrays`'s capacity: a longer stream sends its chunk to
+        # the per-block path, which buckets it
+        cap = max(self.cfg.num_coefs[top], 1)
+        for k in range(0, len(offsets), size):
+            offs = offsets[k : k + size]
+            padded = record_pack.unpack_records(cfg, top, data, offs, cap)
+            if padded is not None:
+                BLOCKS_UNPACKED_BATCHED += len(offs)
+                yield padded
+            else:
+                BLOCKS_UNPACKED_SINGLY += len(offs)
+                yield [unpack_block(cfg, data, int(o))[0] for o in offs]
+
     def _decode_chunks(self, cfg, blocks, mode, rep_bits):
         """Yield decoded ``[chunk, block_size]`` arrays in container order,
         one chunk of `batch_size` blocks at a time, up to 4 device decodes
@@ -728,8 +773,10 @@ class CorpusEncoder:
         (`hsc_tpu.runtime.CorpusEncoder._decode_chunks`): each decode's
         uploads are queued without a host wait, its rows' copy-back is
         started when it is dispatched, and the host waits on that copy's
-        event when it drains the decode.  `blocks` may be a
-        lazy iterator of per-block ``[(level, stream)]`` lists.  A chunk of
+        event when it drains the decode.  `blocks` may be a lazy iterator
+        of per-block ``[(level, stream)]`` lists, or `_Records`, whose
+        chunks of top-only fixed records unpack in one native call straight
+        into the decode's padded arrays (`_chunks`).  A chunk of
         top-only blocks is one batched decode; a distributed or mixed chunk
         (at most one stream per level per block, ascending) is one batched
         decode per level, summed on the host per block in level order; any
@@ -741,7 +788,7 @@ class CorpusEncoder:
         exotic chunk's per-block loop is one), `hsc:decode.drain` a unit's
         wait, copy out of pinned memory and host sum."""
         top = cfg.num_levels - 1
-        it = iter(blocks)
+        chunks = self._chunks(cfg, blocks)
         # pending: (chunk index, block ids or None for the whole chunk, the
         # rows' HostCopy)
         pending: deque = deque()
@@ -750,10 +797,10 @@ class CorpusEncoder:
         next_yield = 0
 
         # sharded over the mesh when the codec has one: the same rows
-        dec = self.coder.reconstruct_batch_device if self.dp_dec is None else self.dp_dec.decode_batch_device
-
-        def decode(streams, level):
-            return dec(streams, level=level, mode=mode, rep_bits=rep_bits)
+        if self.dp_dec is None:
+            dec, dec_padded = self.coder.reconstruct_batch_device, self.coder._decode_device_call
+        else:
+            dec, dec_padded = self.dp_dec.decode_batch_device, self.dp_dec.decode_padded_device
 
         def drain_one():
             with scope("hsc:decode.drain"):
@@ -766,23 +813,30 @@ class CorpusEncoder:
                         outs[ci][b] += rows[j]
                 units_left[ci] -= 1
 
-        def submit(ci, ids, streams, level):
+        def submit(ci, ids, level, streams=None, padded=None):
             # the copy-back starts now, behind this decode on the stream;
             # drain_one waits for it alone, after the dispatch's span
             with scope("hsc:decode.dispatch"):
-                pending.append((ci, ids, copy_to_host_async(decode(streams, level))))
+                if padded is None:
+                    rows = dec(streams, level=level, mode=mode, rep_bits=rep_bits)
+                else:
+                    rows = dec_padded(*padded, level, mode, rep_bits)
+                pending.append((ci, ids, copy_to_host_async(rows)))
             if len(pending) >= 4:
                 drain_one()
 
         ci = 0
         while True:
             with scope("hsc:decode.unpack"):
-                chunk = list(islice(it, max(self.batch_size, 1)))
-            if not chunk:
+                chunk = next(chunks, None)
+            if chunk is None:
                 break
-            if all(len(s) == 1 and s[0][0] == top for s in chunk):
+            if isinstance(chunk, tuple):  # padded arrays of top-only records
                 units_left[ci] = 1
-                submit(ci, None, [s[0][1] for s in chunk], top)
+                submit(ci, None, top, padded=chunk)
+            elif all(len(s) == 1 and s[0][0] == top for s in chunk):
+                units_left[ci] = 1
+                submit(ci, None, top, streams=[s[0][1] for s in chunk])
             elif all(
                 [lv for lv, _ in streams] == sorted({lv for lv, _ in streams})
                 for streams in chunk
@@ -795,7 +849,7 @@ class CorpusEncoder:
                 units_left[ci] = len(by_level)
                 for level in sorted(by_level):
                     ids = [b for b, _ in by_level[level]]
-                    submit(ci, ids, [s for _, s in by_level[level]], level)
+                    submit(ci, ids, level, streams=[s for _, s in by_level[level]])
             else:
                 # exotic (several streams of one level in one block): the
                 # per-block host loop in stream order, not pipelined
@@ -831,15 +885,15 @@ class CorpusEncoder:
             for i in indices:
                 if not 0 <= i < n_blocks:
                     raise IndexError(f"block {i} out of range [0, {n_blocks})")
-            offsets = read_index(blob)
-            if offsets is None or offsets.shape[0] != n_blocks + 1:
+            offsets = _current_index(blob, n_blocks)
+            if offsets is None:
                 # missing footer, or a stale one (blocks appended and the
                 # header count bumped without re-indexing): degrade to the
                 # header scan, never to a wrong seek
                 _, offsets = scan_block_offsets(blob)
-            blocks = (unpack_block(cfg, blob, int(offsets[i]))[0] for i in indices)
+            blocks = _Records(blob, offsets[np.asarray(indices, np.int64)])
         else:
-            blocks = iter_blocks(blob)
+            blocks = _container_blocks(blob, n_blocks)
         for chunk in self._decode_chunks(cfg, blocks, cfg.decode_mode, cfg.rep_bits):
             yield from chunk
 
@@ -859,7 +913,8 @@ class CorpusEncoder:
         self._check_geometry(cfg)
         t0 = time.perf_counter()
         # the stream header's decode arithmetic is authoritative
-        parts = list(self._decode_chunks(cfg, iter_blocks(blob), cfg.decode_mode, cfg.rep_bits))
+        blocks = _container_blocks(blob, n_blocks)
+        parts = list(self._decode_chunks(cfg, blocks, cfg.decode_mode, cfg.rep_bits))
         if not parts:  # empty container (zero blocks)
             out = np.zeros((0, cfg.block_size), dtype=np.float32)
         else:
@@ -875,6 +930,25 @@ class CorpusEncoder:
             }
         )
         return out
+
+
+def _current_index(data, n_blocks: int) -> np.ndarray | None:
+    """The seek-index footer's block offsets when the container carries one
+    for its `n_blocks` blocks, else None."""
+    offsets = read_index(data)
+    if offsets is None or offsets.shape[0] != n_blocks + 1:
+        return None
+    return offsets
+
+
+def _container_blocks(blob, n_blocks: int):
+    """A whole container's blocks for `_decode_chunks`: `_Records` at the
+    footer's offsets when it is current, else the header walk
+    `iter_blocks`."""
+    offsets = _current_index(blob, n_blocks)
+    if offsets is None:
+        return iter_blocks(blob)
+    return _Records(blob, offsets[:-1])
 
 
 class CorpusReader:
@@ -908,8 +982,8 @@ class CorpusReader:
             self._data = mmap.mmap(self._file.fileno(), 0, access=mmap.ACCESS_READ)
             self.cfg, self.n_blocks, _ = _parse_corpus_header(self._data)
             self.codec._check_geometry(self.cfg)
-            offsets = read_index(self._data)
-            if offsets is None or offsets.shape[0] != self.n_blocks + 1:
+            offsets = _current_index(self._data, self.n_blocks)
+            if offsets is None:
                 _, offsets = scan_block_offsets(self._data)
         except BaseException:
             self.close()
@@ -936,7 +1010,7 @@ class CorpusReader:
             stop = self.n_blocks
         start, stop, _ = slice(start, stop).indices(self.n_blocks)
         cfg = self.cfg
-        blocks = (unpack_block(cfg, self._data, int(self._offsets[i]))[0] for i in range(start, stop))
+        blocks = _Records(self._data, self._offsets[start:stop])
         for chunk in self.codec._decode_chunks(cfg, blocks, cfg.decode_mode, cfg.rep_bits):
             yield from chunk
 
