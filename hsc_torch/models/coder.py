@@ -1,7 +1,8 @@
 """User-facing coder classes — counterparts of `hsc_tpu.models.coder`.
 
 `ConvolutionalMatchingPursuit` binds one (bank, Gram) pair and runs the
-batched encode, from a signal (the f32 init) or, at levels >= 1 under
+batched encode, whose init it picks once (`init_stage`): from a signal or
+the level below's f32 map (the f32 init) or, at levels >= 1 under
 hier_init='int8', from the events of the level below (the int8 init);
 `ConvolutionalSparseCoder` is one level; and
 `HierarchicalConvolutionalSparseCoder` drives the levels, the hand-offs
@@ -65,6 +66,12 @@ def to_host(enc: EncodedBlock) -> EncodedBlock:
     """A device `EncodedBlock` as NumPy arrays: every field's copy started
     before the first wait (`utils.device_get_pipelined` of one tree)."""
     return device_get_pipelined([enc])[0]
+
+
+def device_samples(xs, device) -> torch.Tensor:
+    """``[B, N, C]`` (or ``[B, N]``) blocks as ``[B, N, C]`` f32 on `device`."""
+    xs = to_device(torch.as_tensor(xs, dtype=torch.float32), device)
+    return xs[:, :, None] if xs.dim() == 2 else xs
 
 
 def pad_streams(streams, cap: int):
@@ -182,11 +189,24 @@ class ConvolutionalMatchingPursuit(nn.Module):
         return EncodedBlock(*(v[0] for v in enc))
 
     def compute_coefficients_batch(self, xs) -> EncodedBlock:
-        """Encode ``[B, N, C]`` (or ``[B, N]``) host or device blocks."""
-        xs = to_device(torch.as_tensor(xs, dtype=torch.float32), self.device)
-        if xs.dim() == 2:
-            xs = xs[:, :, None]
-        scores0, e0, peak = encode_init_batched(xs, self.bank)
+        """Encode ``[B, N, C]`` (or ``[B, N]``) host or device blocks or
+        level maps through the f32 init, whatever ``int8_init``."""
+        return self._encode_from(*encode_init_batched(device_samples(xs, self.device), self.bank))
+
+    def init_stage(self, seq):
+        """A batch's init -> ``(scores0, e0, peak)``: under ``int8_init`` of
+        the emitting level's events (`init_int_batched`'s arguments), else
+        of ``[B, N, C]`` device samples or f32 maps (`encode_init_batched`)."""
+        if self.int8_init:
+            return self.init_int_batched(*seq)
+        return encode_init_batched(seq, self.bank)
+
+    def encode_stage(self, seq) -> EncodedBlock:
+        """Encode a batch of `init_stage`'s input."""
+        return self._encode_from(*self.init_stage(seq))
+
+    def _encode_from(self, scores0, e0, peak) -> EncodedBlock:
+        """An init's peak copied back, the host quantizer steps, the loop."""
         scale, inv = quantizer_steps(copy_to_host_async(peak).numpy(), self.settings["amp_bits"])
         return self.loop_stage(scores0, e0, scale, inv)
 
@@ -204,14 +224,6 @@ class ConvolutionalMatchingPursuit(nn.Module):
         if self.backend == "cuda":
             return int8_init(*args, n_map=n_map, planes_cnw=self.init_planes)
         return int8_init_from_events_torch(*args, n_map=n_map)
-
-    def compute_coefficients_batch_int(self, *events) -> EncodedBlock:
-        """Encode the emitting level's events (the arguments of
-        `init_int_batched`) through the int8 init — the level >= 1 entry
-        point under hier_init='int8'."""
-        scores0, e0, peak = self.init_int_batched(*events)
-        scale, inv = quantizer_steps(copy_to_host_async(peak).numpy(), self.settings["amp_bits"])
-        return self.loop_stage(scores0, e0, scale, inv)
 
 
 class ConvolutionalSparseCoder(nn.Module):
@@ -310,19 +322,12 @@ class HierarchicalConvolutionalSparseCoder(nn.Module):
     def encode_batch_device(self, xs) -> list[EncodedBlock]:
         """Encode ``[B, N]`` (or ``[B, N, 1]``) blocks level by level -> one
         batched device `EncodedBlock` per level."""
-        seq = torch.as_tensor(xs, dtype=torch.float32)
-        if seq.dim() == 2:
-            seq = seq[:, :, None]
+        seq = device_samples(xs, self.device)
         levels: list[EncodedBlock] = []
         for level, coder in enumerate(self.coders):
-            mp = coder.mp
-            if mp.int8_init:
-                enc = mp.compute_coefficients_batch_int(*seq)
-            else:
-                enc = mp.compute_coefficients_batch(seq)
-            levels.append(enc)
+            levels.append(coder.mp.encode_stage(seq))
             if level + 1 < self.cfg.num_levels:
-                seq = self.handoff(level, enc)
+                seq = self.handoff(level, levels[-1])
         return levels
 
     def encode(self, x) -> list[LevelStream]:

@@ -78,7 +78,10 @@ def encode_hierarchical_batches_pipelined(batches: list, coder, window: int = 4)
     `models.coder.HierarchicalConvolutionalSparseCoder`; `batches` are
     ``[B, N, C]`` host arrays.  Returns ``outs[level][batch]`` (device)
     `EncodedBlock`s, per block bitwise the serial `coder.encode_batch`
-    (same stages, same order within each level).
+    (same stages, same order within each level).  A level's init is its
+    coder's `init_stage`: of the uploaded batch at level 0, and at level
+    k >= 1 of level k-1's hand-off (`coder.handoff`: the events under the
+    int8 init, the f32 map otherwise).
 
     The dataflow and drain policy are the JAX package's: each level keeps a
     FIFO of pending inits (at most `window`); level 0 is fed while it has
@@ -92,11 +95,7 @@ def encode_hierarchical_batches_pipelined(batches: list, coder, window: int = 4)
     device = coder.device
 
     def _push(level, xb):
-        mp = coder.coders[level].mp
-        if mp.int8_init:
-            s0, e0, peak = mp.init_int_batched(*xb)  # the level below's events
-        else:
-            s0, e0, peak = encode_init_batched(xb, mp.bank)
+        s0, e0, peak = coder.coders[level].mp.init_stage(xb)
         pend[level].append((s0, e0, copy_to_host_async(peak)))
 
     def _pop(level):

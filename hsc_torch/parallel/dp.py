@@ -5,8 +5,9 @@ gathered in original block order.
 
 Each batch runs the single-device path's three stages on every shard:
 
-  1. the init of the shard's blocks on its device (`encode_init_batched`,
-     or at an int8 level the int8 init from the events of the level below);
+  1. the init of the shard's input on its device (`ConvolutionalMatchingPursuit
+     .init_stage`: the f32 init of its blocks or of the level below's map,
+     or at an int8 level the int8 init from the level below's events);
   2. every shard's peak copy started on its device, then one wait on each
      copy's event (`utils.device_get_pipelined`) and the spec's host
      quantizer steps (`ops.encode.quantizer_steps`);
@@ -43,7 +44,7 @@ import torch
 
 from ..device import canonical_device, to_device
 from ..models.coder import ConvolutionalMatchingPursuit, HierarchicalConvolutionalSparseCoder
-from ..ops.encode import EncodedBlock, encode_init_batched, quantizer_steps
+from ..ops.encode import EncodedBlock, quantizer_steps
 from ..utils import device_get_pipelined
 from ..utils.profiling import scope
 from .mesh import Mesh, check_mesh_device
@@ -101,6 +102,19 @@ def upload_shard(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     host = torch.empty(a.shape, dtype=torch.from_numpy(np.empty(0, a.dtype)).dtype, pin_memory=True)
     np.copyto(host.numpy(), a)
     return host.to(dev, non_blocking=True)
+
+
+def multihost_split(n_global: int, n_processes: int) -> list[tuple[int, int]]:
+    """Canonical block -> process assignment (`hsc_tpu`'s
+    `DataParallelEncoder.multihost_split`): with ``nl = ceil(n_global /
+    P)``, process p owns global blocks [p*nl, min((p+1)*nl, n_global)).
+    Both endpoints clamp to n_global, so trailing processes of a short
+    corpus own valid empty ranges (never inverted ones)."""
+    nl = -(-n_global // max(n_processes, 1))
+    return [
+        (min(p * nl, n_global), min((p + 1) * nl, n_global))
+        for p in range(n_processes)
+    ]
 
 
 def gather_blocks(encs: list[EncodedBlock], b: int) -> EncodedBlock:
@@ -176,31 +190,17 @@ class DataParallelEncoder:
         with scope("hsc:mesh.collect"):
             return gather_blocks(encs, b)
 
-    def encode_device(self, shards: list[torch.Tensor]) -> list[EncodedBlock]:
-        """Sharded-in, sharded-out encode of already-placed ``[B_i, N, C]``
-        blocks, one tensor per shard on its device -> one device
-        `EncodedBlock` per shard."""
+    def encode_device(self, seqs: list) -> list[EncodedBlock]:
+        """Sharded-in, sharded-out encode of already-placed inputs, one a
+        shard on its device, each what `ConvolutionalMatchingPursuit
+        .init_stage` takes -> one device `EncodedBlock` per shard."""
         with scope("hsc:mesh.init"):
-            inits = [encode_init_batched(x, replica(self.mp, dev).bank) for dev, x in zip(self.devices, shards)]
-        return self._finish(inits)
-
-    def encode_device_int(self, events: list[tuple]) -> list[EncodedBlock]:
-        """Sharded-in, sharded-out int8-init encode (hier_init='int8',
-        levels >= 1): per shard, the emitting level's events as
-        `ConvolutionalMatchingPursuit.init_int_batched` takes them
-        (``positions, atoms, codes, count, prev_scale, n_map``).  On a card
-        the int8-init kernels read the events; no dense map is built."""
-        with scope("hsc:mesh.init"):
-            inits = [replica(self.mp, dev).init_int_batched(*ev) for dev, ev in zip(self.devices, events)]
+            inits = [replica(self.mp, dev).init_stage(seq) for dev, seq in zip(self.devices, seqs)]
         return self._finish(inits)
 
     @staticmethod
     def multihost_split(n_global: int, n_processes: int) -> list[tuple[int, int]]:
-        """Canonical block -> process assignment (`runtime.multihost_split`):
-        with ``nl = ceil(n_global / P)``, process p owns global blocks
-        [p*nl, min((p+1)*nl, n_global))."""
-        from ..runtime import multihost_split
-
+        """`multihost_split`, as the JAX package's encoder has it."""
         return multihost_split(n_global, n_processes)
 
     def encode_multihost(self, local_blocks: np.ndarray, n_global: int) -> EncodedBlock:
@@ -272,11 +272,10 @@ class HierarchicalDataParallelEncoder:
         out = []
         seq = shards
         for level, dp in enumerate(self.levels):
-            encs = dp.encode_device_int(seq) if dp.mp.int8_init else dp.encode_device(seq)
-            out.append(encs)
+            out.append(dp.encode_device(seq))
             if level + 1 < self.cfg.num_levels:
                 with scope("hsc:mesh.handoff"):
-                    seq = [self.coder.handoff(level, e) for e in encs]
+                    seq = [self.coder.handoff(level, e) for e in out[-1]]
         return out
 
     def encode(self, xs: np.ndarray) -> list[EncodedBlock]:

@@ -6,11 +6,11 @@ native call into one buffer and slices them out, each byte-identical to
 `runtime._emit_record(cfg, stream, False)`; `runtime.CorpusEncoder.
 _emit_batched` takes it where every block would get that form.
 `unpack_records` is the inverse for a decode chunk: the records at given
-offsets of a container straight into the decode's padded arrays, equal to
-`io.bitstream.unpack_block` then `models.coder.pad_streams`;
-`runtime.CorpusEncoder._decode_chunks` takes it for fixed-entropy
-containers and unpacks block by block where it gives up.  The
-library is compiled on demand with g++, cached under
+offsets of a container straight into the padded arrays of its decode
+unit, equal to `io.bitstream.unpack_block` then `models.coder.pad_streams`;
+`runtime.CorpusEncoder._chunks` takes it for fixed-entropy containers, and
+where it gives up unpacks block by block and pads the streams into the
+same arrays.  The library is compiled on demand with g++, cached under
 ``build/hsc_torch_record_pack/`` at the repository root keyed on a hash of
 the source, as `io.native` builds `csrc/bitpack.cpp`.  When g++ is
 missing, the build fails or ``HSC_TPU_NO_NATIVE`` is set, `available()` is

@@ -56,6 +56,7 @@ from .device import copy_to_host_async
 from .models.coder import HierarchicalConvolutionalSparseCoder, level_streams
 from .ops.pipeline import encode_batches_pipelined, encode_hierarchical_batches_pipelined
 from .oracle.mp import LevelStream, to_distributed
+from .parallel.dp import multihost_split
 from .utils import device_get_pipelined
 from .utils.metrics import MetricsLogger
 from .utils.profiling import scope
@@ -132,19 +133,6 @@ def parse_journal_fingerprint(stored: str):
         float(t) if t is not None else None,
         "corpus" if m.group(2) == "cbrc" else "block",
     )
-
-
-def multihost_split(n_global: int, n_processes: int) -> list[tuple[int, int]]:
-    """Canonical block -> process assignment (`hsc_tpu`'s
-    `DataParallelEncoder.multihost_split`): with ``nl = ceil(n_global /
-    P)``, process p owns global blocks [p*nl, min((p+1)*nl, n_global)).
-    Both endpoints clamp to n_global, so trailing processes of a short
-    corpus own valid empty ranges (never inverted ones)."""
-    nl = -(-n_global // max(n_processes, 1))
-    return [
-        (min(p * nl, n_global), min((p + 1) * nl, n_global))
-        for p in range(n_processes)
-    ]
 
 
 def _prefix_stream(stream, k: int):
@@ -444,11 +432,15 @@ class CorpusEncoder:
         self.metrics = MetricsLogger(metrics_path, process_index)
         self.dp = None
         self.dp_dec = None
+        # the device decode of a unit's padded host arrays, sharded over the
+        # mesh when the codec has one: the same rows
+        self._decode_padded = self.coder._decode_device_call
         if mesh is not None:
             from .parallel.dp import DataParallelDecoder, HierarchicalDataParallelEncoder
 
             self.dp = HierarchicalDataParallelEncoder(mesh, self.coder, axis=mesh_axis)
             self.dp_dec = DataParallelDecoder(mesh, self.coder, axis=mesh_axis)
+            self._decode_padded = self.dp_dec.decode_padded_device
 
     # -- encode -------------------------------------------------------------
 
@@ -735,24 +727,23 @@ class CorpusEncoder:
                     f"this dictionary ({getattr(self.cfg, field)})"
                 )
 
-    def _chunks(self, cfg, blocks):
-        """Yield the chunks of `_decode_chunks`'s `blocks`, `batch_size`
-        blocks each.  From `_Records` a chunk is the padded decode arrays of
-        one `record_pack.unpack_records` call; else, and where that call
-        gives up, a list of per-block ``[(level, stream)]`` from
-        `unpack_block` (which raises on a faulty record).  Counts each
-        chunk's blocks in `BLOCKS_UNPACKED_BATCHED` or
-        `BLOCKS_UNPACKED_SINGLY`."""
+    def _chunks(self, cfg, blocks, mode):
+        """Yield `_decode_chunks`' `blocks` in chunks of `batch_size` as
+        ``(per-block [(level, stream)] lists, `_units`)``.  From `_Records`
+        a top-only chunk unpacks in one `record_pack.unpack_records` call
+        straight into its one unit's arrays (no lists); else, and where that
+        call gives up, block by block through `unpack_block` (which raises
+        on a faulty record).  Counts the blocks in `BLOCKS_UNPACKED_*`."""
         global BLOCKS_UNPACKED_BATCHED, BLOCKS_UNPACKED_SINGLY
         size = max(self.batch_size, 1)
+        top = cfg.num_levels - 1
         if not isinstance(blocks, _Records):
             it = iter(blocks)
             while chunk := list(islice(it, size)):
                 BLOCKS_UNPACKED_SINGLY += len(chunk)
-                yield chunk
+                yield chunk, self._units(chunk, top, mode)
             return
         data, offsets = blocks
-        top = cfg.num_levels - 1
         # `_decode_arrays`'s capacity: a longer stream sends its chunk to
         # the per-block path, which buckets it
         cap = max(self.cfg.num_coefs[top], 1)
@@ -761,10 +752,33 @@ class CorpusEncoder:
             padded = record_pack.unpack_records(cfg, top, data, offs, cap)
             if padded is not None:
                 BLOCKS_UNPACKED_BATCHED += len(offs)
-                yield padded
+                yield None, [(None, top, padded)]
             else:
                 BLOCKS_UNPACKED_SINGLY += len(offs)
-                yield [unpack_block(cfg, data, int(o))[0] for o in offs]
+                chunk = [unpack_block(cfg, data, int(o))[0] for o in offs]
+                yield chunk, self._units(chunk, top, mode)
+
+    def _units(self, chunk, top: int, mode):
+        """A chunk's decode units ``(ids, level, arrays)``: the padded host
+        arrays ``(pos, atm, cds, cnt, scl)`` of one decode (the coder's
+        `_decode_arrays`) and the chunk rows they add to (None: all).  One
+        unit a top-only chunk, one a level a distributed or mixed one (at
+        most one stream per level per block, ascending); else None."""
+        def unit(ids, level, streams):
+            return ids, level, self.coder._decode_arrays(streams, level, mode)[:5]
+
+        if all(len(s) == 1 and s[0][0] == top for s in chunk):
+            return [unit(None, top, [s[0][1] for s in chunk])]
+        if not all([lv for lv, _ in s] == sorted({lv for lv, _ in s}) for s in chunk):
+            return None
+        by_level: dict[int, list[tuple[int, LevelStream]]] = {}
+        for b, streams in enumerate(chunk):
+            for level, stream in streams:
+                by_level.setdefault(level, []).append((b, stream))
+        return [
+            unit([b for b, _ in by_level[level]], level, [s for _, s in by_level[level]])
+            for level in sorted(by_level)
+        ]
 
     def _decode_chunks(self, cfg, blocks, mode, rep_bits):
         """Yield decoded ``[chunk, block_size]`` arrays in container order,
@@ -774,33 +788,22 @@ class CorpusEncoder:
         uploads are queued without a host wait, its rows' copy-back is
         started when it is dispatched, and the host waits on that copy's
         event when it drains the decode.  `blocks` may be a lazy iterator
-        of per-block ``[(level, stream)]`` lists, or `_Records`, whose
-        chunks of top-only fixed records unpack in one native call straight
-        into the decode's padded arrays (`_chunks`).  A chunk of
-        top-only blocks is one batched decode; a distributed or mixed chunk
-        (at most one stream per level per block, ascending) is one batched
-        decode per level, summed on the host per block in level order; any
-        other shape decodes block by block through the coder's single-block
-        `reconstruct`, streams in container order.
+        of per-block ``[(level, stream)]`` lists, or `_Records`.  Each unit
+        of `_chunks` is one decode of `_decode_padded`, a distributed
+        chunk's summed on the host per block in level order; an exotic
+        chunk decodes block by block (`reconstruct`), streams in order.
 
         Spans, disjoint and none across a `yield`: `hsc:decode.unpack` a
-        chunk pulled from `blocks`, `hsc:decode.dispatch` a decode unit (an
-        exotic chunk's per-block loop is one), `hsc:decode.drain` a unit's
-        wait, copy out of pinned memory and host sum."""
-        top = cfg.num_levels - 1
-        chunks = self._chunks(cfg, blocks)
+        chunk pulled from `_chunks`, `hsc:decode.dispatch` a decode unit
+        (an exotic chunk's per-block loop is one), `hsc:decode.drain` a
+        unit's wait, copy out of pinned memory and host sum."""
+        chunks = self._chunks(cfg, blocks, mode)
         # pending: (chunk index, block ids or None for the whole chunk, the
         # rows' HostCopy)
         pending: deque = deque()
         outs: dict[int, np.ndarray] = {}
         units_left: dict[int, int] = {}
         next_yield = 0
-
-        # sharded over the mesh when the codec has one: the same rows
-        if self.dp_dec is None:
-            dec, dec_padded = self.coder.reconstruct_batch_device, self.coder._decode_device_call
-        else:
-            dec, dec_padded = self.dp_dec.decode_batch_device, self.dp_dec.decode_padded_device
 
         def drain_one():
             with scope("hsc:decode.drain"):
@@ -813,14 +816,11 @@ class CorpusEncoder:
                         outs[ci][b] += rows[j]
                 units_left[ci] -= 1
 
-        def submit(ci, ids, level, streams=None, padded=None):
+        def submit(ci, ids, level, arrays):
             # the copy-back starts now, behind this decode on the stream;
             # drain_one waits for it alone, after the dispatch's span
             with scope("hsc:decode.dispatch"):
-                if padded is None:
-                    rows = dec(streams, level=level, mode=mode, rep_bits=rep_bits)
-                else:
-                    rows = dec_padded(*padded, level, mode, rep_bits)
+                rows = self._decode_padded(*arrays, level, mode, rep_bits)
                 pending.append((ci, ids, copy_to_host_async(rows)))
             if len(pending) >= 4:
                 drain_one()
@@ -831,37 +831,25 @@ class CorpusEncoder:
                 chunk = next(chunks, None)
             if chunk is None:
                 break
-            if isinstance(chunk, tuple):  # padded arrays of top-only records
-                units_left[ci] = 1
-                submit(ci, None, top, padded=chunk)
-            elif all(len(s) == 1 and s[0][0] == top for s in chunk):
-                units_left[ci] = 1
-                submit(ci, None, top, streams=[s[0][1] for s in chunk])
-            elif all(
-                [lv for lv, _ in streams] == sorted({lv for lv, _ in streams})
-                for streams in chunk
-            ):
-                by_level: dict[int, list[tuple[int, LevelStream]]] = {}
-                for b, streams in enumerate(chunk):
-                    for level, stream in streams:
-                        by_level.setdefault(level, []).append((b, stream))
-                outs[ci] = np.zeros((len(chunk), cfg.block_size), np.float32)
-                units_left[ci] = len(by_level)
-                for level in sorted(by_level):
-                    ids = [b for b, _ in by_level[level]]
-                    submit(ci, ids, level, streams=[s for _, s in by_level[level]])
-            else:
+            per_block, units = chunk
+            if units is None:
                 # exotic (several streams of one level in one block): the
                 # per-block host loop in stream order, not pipelined
                 with scope("hsc:decode.dispatch"):
-                    out = np.zeros((len(chunk), cfg.block_size), np.float32)
-                    for b, streams in enumerate(chunk):
+                    out = np.zeros((len(per_block), cfg.block_size), np.float32)
+                    for b, streams in enumerate(per_block):
                         for level, stream in streams:
                             out[b] += self.coder.reconstruct(
                                 stream, level=level, mode=mode, rep_bits=rep_bits
                             )
                 outs[ci] = out
                 units_left[ci] = 0
+            else:
+                if not (units and units[0][0] is None):  # summed per level
+                    outs[ci] = np.zeros((len(per_block), cfg.block_size), np.float32)
+                units_left[ci] = len(units)
+                for ids, level, arrays in units:
+                    submit(ci, ids, level, arrays)
             ci += 1
             while next_yield < ci and units_left[next_yield] == 0:
                 yield outs.pop(next_yield)
@@ -872,61 +860,59 @@ class CorpusEncoder:
                 yield outs.pop(next_yield)
                 next_yield += 1
 
+    def _join_rows(self, chunks) -> np.ndarray:
+        """`_decode_chunks`' arrays as one ``[n, block_size]`` array, in one
+        `hsc:decode.stack` span: the only chunk as it is, else one
+        concatenation; ``[0, block_size]`` float32 for none."""
+        parts = list(chunks)
+        if not parts:
+            return np.zeros((0, self.cfg.block_size), dtype=np.float32)
+        with scope("hsc:decode.stack"):
+            return np.concatenate(parts) if len(parts) > 1 else parts[0]
+
+    def _container_chunks(self, blob: bytes, indices=None):
+        """`_decode_chunks` of all of `blob`'s blocks (`_container_blocks`),
+        or of those of `indices` in the order given, at `_block_offsets`,
+        so that only their records are unpacked."""
+        cfg, n_blocks = peek_corpus_header(blob)
+        self._check_geometry(cfg)
+        if indices is None:
+            blocks = _container_blocks(blob, n_blocks)
+        else:
+            indices = [int(i) for i in indices]
+            for i in indices:
+                if not 0 <= i < n_blocks:
+                    raise IndexError(f"block {i} out of range [0, {n_blocks})")
+            blocks = _Records(blob, _block_offsets(blob, n_blocks)[np.asarray(indices, np.int64)])
+        # the stream header's decode arithmetic is authoritative
+        return self._decode_chunks(cfg, blocks, cfg.decode_mode, cfg.rep_bits)
+
     def decode_stream(self, blob: bytes, indices=None):
         """Yield decoded blocks ``[block_size]`` in container order, bounded
         memory, rows byte-identical to `decode`'s.  `indices` (optional)
         streams only those blocks, in the order given: offsets from the
         seek-index footer when the container carries a current one, else
         one header scan; only the selected payloads are unpacked."""
-        cfg, n_blocks = peek_corpus_header(blob)
-        self._check_geometry(cfg)
-        if indices is not None:
-            indices = [int(i) for i in indices]
-            for i in indices:
-                if not 0 <= i < n_blocks:
-                    raise IndexError(f"block {i} out of range [0, {n_blocks})")
-            offsets = _current_index(blob, n_blocks)
-            if offsets is None:
-                # missing footer, or a stale one (blocks appended and the
-                # header count bumped without re-indexing): degrade to the
-                # header scan, never to a wrong seek
-                _, offsets = scan_block_offsets(blob)
-            blocks = _Records(blob, offsets[np.asarray(indices, np.int64)])
-        else:
-            blocks = _container_blocks(blob, n_blocks)
-        for chunk in self._decode_chunks(cfg, blocks, cfg.decode_mode, cfg.rep_bits):
+        for chunk in self._container_chunks(blob, indices):
             yield from chunk
 
     def decode_blocks(self, blob: bytes, indices) -> np.ndarray:
         """Random-access decode: only the requested blocks, as
         ``[len(indices), block_size]`` in the order given, each row
         byte-identical to the matching row of `decode`."""
-        rows = list(self.decode_stream(blob, indices=list(indices)))
-        if not rows:
-            return np.zeros((0, self.cfg.block_size), dtype=np.float32)
-        with scope("hsc:decode.stack"):
-            return np.stack(rows)
+        return self._join_rows(self._container_chunks(blob, list(indices)))
 
     def decode(self, blob: bytes) -> np.ndarray:
         """Decode a container -> ``[n_blocks, block_size]`` float32."""
-        cfg, n_blocks = peek_corpus_header(blob)
-        self._check_geometry(cfg)
         t0 = time.perf_counter()
-        # the stream header's decode arithmetic is authoritative
-        blocks = _container_blocks(blob, n_blocks)
-        parts = list(self._decode_chunks(cfg, blocks, cfg.decode_mode, cfg.rep_bits))
-        if not parts:  # empty container (zero blocks)
-            out = np.zeros((0, cfg.block_size), dtype=np.float32)
-        else:
-            with scope("hsc:decode.stack"):
-                out = np.concatenate(parts, axis=0) if len(parts) > 1 else parts[0]
+        out = self._join_rows(self._container_chunks(blob))
         dt = time.perf_counter() - t0
         self.metrics.log(
             {
                 "kind": "decode",
-                "blocks": n_blocks,
+                "blocks": out.shape[0],
                 "seconds": dt,
-                "mb_per_s": n_blocks * cfg.block_size * 4 / 1e6 / dt,
+                "mb_per_s": out.nbytes / 1e6 / dt,
             }
         )
         return out
@@ -941,10 +927,21 @@ def _current_index(data, n_blocks: int) -> np.ndarray | None:
     return offsets
 
 
+def _block_offsets(data, n_blocks: int) -> np.ndarray:
+    """The blocks' record offsets: the seek-index footer's when it is
+    current, else (missing, or stale after an append) one header scan's,
+    never a wrong seek."""
+    offsets = _current_index(data, n_blocks)
+    if offsets is None:
+        _, offsets = scan_block_offsets(data)
+    return offsets
+
+
 def _container_blocks(blob, n_blocks: int):
     """A whole container's blocks for `_decode_chunks`: `_Records` at the
-    footer's offsets when it is current, else the header walk
-    `iter_blocks`."""
+    footer's offsets when it is current, else the lazy header walk
+    `iter_blocks` (no scan first: a truncated container raises where its
+    rows stop)."""
     offsets = _current_index(blob, n_blocks)
     if offsets is None:
         return iter_blocks(blob)
@@ -982,22 +979,17 @@ class CorpusReader:
             self._data = mmap.mmap(self._file.fileno(), 0, access=mmap.ACCESS_READ)
             self.cfg, self.n_blocks, _ = _parse_corpus_header(self._data)
             self.codec._check_geometry(self.cfg)
-            offsets = _current_index(self._data, self.n_blocks)
-            if offsets is None:
-                _, offsets = scan_block_offsets(self._data)
+            self._offsets = _block_offsets(self._data, self.n_blocks)
         except BaseException:
             self.close()
             raise
-        self._offsets = offsets
 
     def __len__(self) -> int:
         return self.n_blocks
 
     def __getitem__(self, i) -> np.ndarray:
         if isinstance(i, slice):
-            rows = list(self.rows(*i.indices(self.n_blocks)[:2]))
-            with scope("hsc:decode.stack"):
-                return np.stack(rows)
+            return self.codec._join_rows(self._chunks(*i.indices(self.n_blocks)[:2]))
         i = int(i)
         if i < 0:
             i += self.n_blocks
@@ -1006,13 +998,13 @@ class CorpusReader:
     def rows(self, start: int = 0, stop: int | None = None):
         """Yield decoded rows [start, stop), chunked by the codec's
         batch_size, device chunks pipelined, bounded memory."""
-        if stop is None:
-            stop = self.n_blocks
-        start, stop, _ = slice(start, stop).indices(self.n_blocks)
-        cfg = self.cfg
-        blocks = _Records(self._data, self._offsets[start:stop])
-        for chunk in self.codec._decode_chunks(cfg, blocks, cfg.decode_mode, cfg.rep_bits):
+        for chunk in self._chunks(start, stop):
             yield from chunk
+
+    def _chunks(self, start: int, stop: int | None):
+        start, stop, _ = slice(start, stop).indices(self.n_blocks)
+        blocks = _Records(self._data, self._offsets[start:stop])
+        return self.codec._decode_chunks(self.cfg, blocks, self.cfg.decode_mode, self.cfg.rep_bits)
 
     def close(self) -> None:
         if getattr(self, "_data", None) is not None:

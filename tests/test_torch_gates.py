@@ -34,7 +34,6 @@ from pinned import oracle_hierarchical_pinned
 
 import hsc_torch.models.coder
 import hsc_torch.ops.pipeline
-import hsc_torch.parallel.dp
 from hsc_torch.models import HierarchicalConvolutionalSparseCoder
 from hsc_torch.params import dictionary_from_arrays
 from hsc_torch.parallel import make_mesh
@@ -106,7 +105,7 @@ def test_containers_batch_invariant(monkeypatch, seed):
     assert fuzz.init_batch_diff(xs, coder.coders[0].mp.bank, torch.device("cpu"), (1, 3)) is None, cfg
     blobs = {bs: CorpusEncoder(pmld, device="cpu", batch_size=bs).encode(xs) for bs in (1, 3, n)}
     assert blobs[1] == blobs[3] == blobs[n], cfg
-    _inject(monkeypatch, hsc_torch.ops.pipeline)
+    _inject(monkeypatch, hsc_torch.ops.pipeline, hsc_torch.models.coder)
     port = CorpusEncoder(pmld, device="cpu", batch_size=3)
     jax_enc = JaxCorpusEncoder(mld, backend="jax", batch_size=3)
     blob = port.encode(xs)
@@ -154,7 +153,7 @@ def test_f32_containers(monkeypatch, seed, levels, distributed):
     cfg = _small_config(rng, levels, hier_init="f32", entropy=("fixed", "rice")[seed % 2])
     mld = JaxMLD.generate(cfg, seed=seed + 80, max_correlation=0.98)
     xs = _corpus(mld, 5, seed + 81)
-    _inject(monkeypatch, hsc_torch.ops.pipeline)
+    _inject(monkeypatch, hsc_torch.ops.pipeline, hsc_torch.models.coder)
     port = CorpusEncoder(_port(mld), device="cpu", batch_size=2, distributed=distributed)
     jax_enc = JaxCorpusEncoder(mld, backend="jax", batch_size=2, distributed=distributed)
     blob = port.encode(xs)
@@ -179,7 +178,7 @@ def test_mesh_containers_ragged(monkeypatch, seed, shards):
     xs = _corpus(mld, n, seed + 91)
     pmld = _port(mld)
     mesh = make_mesh({"data": shards}, devices=["cpu"] * shards)
-    _inject(monkeypatch, hsc_torch.parallel.dp, hsc_torch.ops.pipeline)
+    _inject(monkeypatch, hsc_torch.models.coder, hsc_torch.ops.pipeline)
     got = CorpusEncoder(pmld, device="cpu", batch_size=bs, mesh=mesh).encode(xs)
     jax_mesh = jax_make_mesh({"data": shards}, devices=jax.devices()[:shards])
     assert got == JaxCorpusEncoder(mld, backend="jax", batch_size=bs, mesh=jax_mesh).encode(xs), (cfg, n, bs)

@@ -60,7 +60,7 @@ def _jax_init(xb, bank):
 
 
 # every module that looks up the level-0 init by name
-INIT_USERS = (hsc_torch.parallel.dp, hsc_torch.ops.pipeline, hsc_torch.models.coder, torch_multicard)
+INIT_USERS = (hsc_torch.ops.pipeline, hsc_torch.models.coder, torch_multicard)
 
 
 def _inject_in_this_process():

@@ -6,7 +6,7 @@ Mirrors tests/test_parallel.py.  JAX runs on conftest's 8 virtual CPU
 devices; the port on meshes of repeated CPU devices.  Tolerances:
   * the data-parallel codec: streams and rows bitwise the port's local path
     (the same per-block arithmetic), and bitwise JAX's data-parallel path
-    with JAX's level-0 init injected where `parallel.dp` looks it up;
+    with JAX's level-0 init injected where the coder looks it up;
   * `sp_loop` / `tp_loop` given JAX's single-device init
     (`encode_init_jax`): positions, atoms, codes, count and scale bitwise
     JAX's single-device stream, the port's local loop and JAX's
@@ -39,7 +39,7 @@ from hsc_tpu.parallel import make_mesh as jax_make_mesh
 from hsc_tpu.parallel import sp_encode as jax_sp_encode
 from hsc_tpu.parallel import tp_encode as jax_tp_encode
 
-import hsc_torch.parallel.dp
+import hsc_torch.models.coder
 from hsc_torch.learn.kmeans import kmeans_refine_device
 from hsc_torch.models import ConvolutionalSparseCoder, HierarchicalConvolutionalSparseCoder
 from hsc_torch.ops.encode import mp_encode_from_init_torch, quantizer_steps
@@ -69,12 +69,12 @@ def _cpu_mesh(axes):
 @pytest.fixture
 def inject(monkeypatch):
     """JAX's level-0 init where the port's data-parallel encoder looks up
-    `encode_init_batched`."""
+    `encode_init_batched` (`ConvolutionalMatchingPursuit.init_stage`)."""
     def init(xb, bank):
         out = jax_init(jnp.asarray(xb.numpy()), jnp.asarray(bank.numpy()))
         return tuple(torch.from_numpy(np.array(a)) for a in out)
 
-    monkeypatch.setattr(hsc_torch.parallel.dp, "encode_init_batched", init)
+    monkeypatch.setattr(hsc_torch.models.coder, "encode_init_batched", init)
 
 
 def _fields_equal(a, b, n_blocks):

@@ -31,8 +31,8 @@ from hsc_tpu.runtime import CorpusEncoder as JaxCorpusEncoder
 from hsc_tpu.utils.metrics import read_metrics
 
 import hsc_torch.cli as port_cli
+import hsc_torch.models.coder
 import hsc_torch.ops.pipeline
-import hsc_torch.parallel.dp
 from hsc_torch.learn import (
     ConvolutionalDictionaryLearner,
     MultilevelTrainer,
@@ -53,13 +53,14 @@ def _cpu_mesh(n, axis="data"):
 
 @pytest.fixture
 def inject(monkeypatch):
-    """JAX's level-0 init where the port's data-parallel encoder and local
-    pipeline look up `encode_init_batched`."""
+    """JAX's level-0 init where the port's coder (the data-parallel encoder's
+    and the level pipeline's init) and flat pipeline look up
+    `encode_init_batched`."""
     def init(xb, bank):
         out = jax_init(jnp.asarray(xb.numpy()), jnp.asarray(bank.numpy()))
         return tuple(torch.from_numpy(np.array(a)) for a in out)
 
-    for module in (hsc_torch.parallel.dp, hsc_torch.ops.pipeline):
+    for module in (hsc_torch.models.coder, hsc_torch.ops.pipeline):
         monkeypatch.setattr(module, "encode_init_batched", init)
 
 

@@ -153,23 +153,35 @@ def test_decode_stream_unpacks_lazily(mld1, monkeypatch):
     assert _rows_equal(np.stack(rows), jenc.decode(blob))
 
 
-@pytest.mark.parametrize("indexed", [False, True])
-def test_corpus_reader(tmp_path, mld1, indexed):
-    """Rows, negative indices, slices and ranges of a memory-mapped file,
-    bitwise JAX's full decode and JAX's own reader."""
+@pytest.mark.parametrize(
+    "indexed, entropy",
+    [
+        pytest.param(False, "fixed", id="False"),
+        pytest.param(True, "fixed", id="True"),
+        # the records unpack block by block and their streams are padded
+        pytest.param(True, "rice", id="rice"),
+    ],
+)
+def test_corpus_reader(tmp_path, mld1, indexed, entropy):
+    """Rows, negative indices, slices (one across a chunk boundary, one
+    empty) and ranges of a memory-mapped file, bitwise JAX's full decode,
+    the port's and JAX's own reader."""
     from hsc_tpu.runtime import CorpusReader as JaxReader
 
-    jenc, _, blob = _jax_blob(mld1, 9, 7)
+    mld = _with(mld1, entropy=entropy)
+    jenc, _, blob = _jax_blob(mld, 9, 7)
     full = jenc.decode(blob)
+    assert _rows_equal(CorpusEncoder(_port(mld), device="cpu", batch_size=2).decode(blob), full)
     p = tmp_path / "c.hsct"
     p.write_bytes(append_index(blob) if indexed else blob)
-    with CorpusReader(str(p), _port(mld1), device="cpu", batch_size=2) as rd:
+    with CorpusReader(str(p), _port(mld), device="cpu", batch_size=2) as rd:
         assert len(rd) == 9
         assert _rows_equal(rd[3], full[3]) and _rows_equal(rd[-1], full[8])
         assert _rows_equal(rd[2:5], full[2:5])
+        assert _rows_equal(rd[3:3], full[3:3])
         assert _rows_equal(np.stack(list(rd.rows())), full)
         assert _rows_equal(np.stack(list(rd.rows(4, 7))), full[4:7])
-    with JaxReader(str(p), mld1, backend="jax", batch_size=2) as jr:
+    with JaxReader(str(p), mld, backend="jax", batch_size=2) as jr:
         assert _rows_equal(jr[2:5], full[2:5])
 
 

@@ -179,13 +179,13 @@ def test_decode_chunks_start_copies_at_submit(monkeypatch, shape):
         for level, st in block:
             want[b] += codec.coder.reconstruct(st, level=level, mode=cfg.decode_mode)
     log = _record_copies(monkeypatch, hsc_torch.runtime)
-    real_decode = codec.coder.reconstruct_batch_device
+    real_decode = codec._decode_padded
 
     def decode(*args, **kwargs):
         log.append(("decode", sum(e[0] == "decode" for e in log)))
         return real_decode(*args, **kwargs)
 
-    monkeypatch.setattr(codec.coder, "reconstruct_batch_device", decode)
+    monkeypatch.setattr(codec, "_decode_padded", decode)
     rows = np.concatenate(list(codec._decode_chunks(cfg, iter(blocks), cfg.decode_mode, None)))
     assert rows.tobytes() == want.tobytes()
     if shape == "exotic":  # decoded block by block, not pipelined
