@@ -123,11 +123,16 @@ def to_device(array, device) -> torch.Tensor:
 
 class HostCopy:
     """A device-to-host copy in flight (`copy_to_host_async`).  `numpy()`
-    waits for this copy's CUDA event only, not for the stream, and returns
-    the values in pageable memory of their own, so the pinned staging goes
-    back to the caching host allocator (which never returns pinned pages to
-    the system) and no caller holds a view of it.  For a CPU tensor it is
-    the tensor itself and `numpy()` its ``.numpy()``."""
+    and `numpy_into(dst)` wait for this copy's CUDA event only, not for
+    the stream; `numpy()` returns the values in pageable memory of their
+    own, `numpy_into` copies them into `dst`, a caller's pageable array of
+    their shape (a reader slice's rows land straight in the array it
+    returns).  So no caller holds a view of the pinned staging, which goes
+    back to the caching host allocator (which never returns pinned pages
+    to the system).  For a CPU tensor it is the tensor itself and
+    `numpy()` its ``.numpy()``.  (`numpy()` keeps its own ``.copy()``:
+    allocating then `np.copyto` costs a few microseconds more a copy,
+    and the encode paths make hundreds a call.)"""
 
     def __init__(self, tensor: torch.Tensor):
         if tensor.device.type != "cuda":
@@ -137,6 +142,12 @@ class HostCopy:
         self._host.copy_(tensor, non_blocking=True)
         self._event = torch.cuda.Event()
         self._event.record(torch.cuda.current_stream(tensor.device))
+
+    def numpy_into(self, dst: np.ndarray) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        np.copyto(dst, self._host.numpy())
+        return dst
 
     def numpy(self) -> np.ndarray:
         if self._event is None:

@@ -70,6 +70,9 @@ BLOCKS_PACKED_SINGLY = 0
 # through `io.bitstream.unpack_block`
 BLOCKS_UNPACKED_BATCHED = 0
 BLOCKS_UNPACKED_SINGLY = 0
+# rows a decode drained straight into a join's output (`_join_rows`) since
+# import (or since a caller reset it to 0)
+BLOCKS_JOINED_IN_PLACE = 0
 
 
 class _Records(NamedTuple):
@@ -729,7 +732,8 @@ class CorpusEncoder:
 
     def _chunks(self, cfg, blocks, mode):
         """Yield `_decode_chunks`' `blocks` in chunks of `batch_size` as
-        ``(per-block [(level, stream)] lists, `_units`)``.  From `_Records`
+        ``(blocks in the chunk, per-block [(level, stream)] lists,
+        `_units`)``.  From `_Records`
         a top-only chunk unpacks in one `record_pack.unpack_records` call
         straight into its one unit's arrays (no lists); else, and where that
         call gives up, block by block through `unpack_block` (which raises
@@ -741,7 +745,7 @@ class CorpusEncoder:
             it = iter(blocks)
             while chunk := list(islice(it, size)):
                 BLOCKS_UNPACKED_SINGLY += len(chunk)
-                yield chunk, self._units(chunk, top, mode)
+                yield len(chunk), chunk, self._units(chunk, top, mode)
             return
         data, offsets = blocks
         # `_decode_arrays`'s capacity: a longer stream sends its chunk to
@@ -752,11 +756,11 @@ class CorpusEncoder:
             padded = record_pack.unpack_records(cfg, top, data, offs, cap)
             if padded is not None:
                 BLOCKS_UNPACKED_BATCHED += len(offs)
-                yield None, [(None, top, padded)]
+                yield len(offs), None, [(None, top, padded)]
             else:
                 BLOCKS_UNPACKED_SINGLY += len(offs)
                 chunk = [unpack_block(cfg, data, int(o))[0] for o in offs]
-                yield chunk, self._units(chunk, top, mode)
+                yield len(chunk), chunk, self._units(chunk, top, mode)
 
     def _units(self, chunk, top: int, mode):
         """A chunk's decode units ``(ids, level, arrays)``: the padded host
@@ -780,7 +784,7 @@ class CorpusEncoder:
             for level in sorted(by_level)
         ]
 
-    def _decode_chunks(self, cfg, blocks, mode, rep_bits):
+    def _decode_chunks(self, cfg, blocks, mode, rep_bits, out=None):
         """Yield decoded ``[chunk, block_size]`` arrays in container order,
         one chunk of `batch_size` blocks at a time, up to 4 device decodes
         in flight while the host unpacks the next chunk
@@ -792,6 +796,9 @@ class CorpusEncoder:
         of `_chunks` is one decode of `_decode_padded`, a distributed
         chunk's summed on the host per block in level order; an exotic
         chunk decodes block by block (`reconstruct`), streams in order.
+        With `out` (`_join_rows`' ``[len(blocks), block_size]`` float32
+        array) a chunk's rows are made in their rows of `out` and the chunk
+        yielded is that view; without, each chunk is a fresh array.
 
         Spans, disjoint and none across a `yield`: `hsc:decode.unpack` a
         chunk pulled from `_chunks`, `hsc:decode.dispatch` a decode unit
@@ -808,13 +815,24 @@ class CorpusEncoder:
         def drain_one():
             with scope("hsc:decode.drain"):
                 ci, ids, copy = pending.popleft()
-                rows = copy.numpy()[:, :, 0]
-                if ids is None:
-                    outs[ci] = rows
+                if ids is None and out is not None:
+                    copy.numpy_into(outs[ci][:, :, None])
+                elif ids is None:
+                    outs[ci] = copy.numpy()[:, :, 0]
                 else:
+                    rows = copy.numpy()[:, :, 0]
                     for j, b in enumerate(ids):
                         outs[ci][b] += rows[j]
                 units_left[ci] -= 1
+
+        def zeroed(ci, n):
+            # a chunk's rows that are summed into: zero, then += as the
+            # sum's first term (not an assignment, which keeps a -0.0)
+            if out is None:
+                outs[ci] = np.zeros((n, cfg.block_size), np.float32)
+            else:
+                outs[ci].fill(0)
+            return outs[ci]
 
         def submit(ci, ids, level, arrays):
             # the copy-back starts now, behind this decode on the stream;
@@ -825,67 +843,82 @@ class CorpusEncoder:
             if len(pending) >= 4:
                 drain_one()
 
-        ci = 0
+        def finished():
+            nonlocal next_yield
+            while next_yield < ci and units_left[next_yield] == 0:
+                yield outs.pop(next_yield)
+                next_yield += 1
+
+        ci = row = 0
         while True:
             with scope("hsc:decode.unpack"):
                 chunk = next(chunks, None)
             if chunk is None:
                 break
-            per_block, units = chunk
+            n, per_block, units = chunk
+            if out is not None:
+                outs[ci] = out[row : row + n]
+            row += n
             if units is None:
                 # exotic (several streams of one level in one block): the
                 # per-block host loop in stream order, not pipelined
                 with scope("hsc:decode.dispatch"):
-                    out = np.zeros((len(per_block), cfg.block_size), np.float32)
+                    rows = zeroed(ci, n)
                     for b, streams in enumerate(per_block):
                         for level, stream in streams:
-                            out[b] += self.coder.reconstruct(
+                            rows[b] += self.coder.reconstruct(
                                 stream, level=level, mode=mode, rep_bits=rep_bits
                             )
-                outs[ci] = out
                 units_left[ci] = 0
             else:
                 if not (units and units[0][0] is None):  # summed per level
-                    outs[ci] = np.zeros((len(per_block), cfg.block_size), np.float32)
+                    zeroed(ci, n)
                 units_left[ci] = len(units)
                 for ids, level, arrays in units:
                     submit(ci, ids, level, arrays)
             ci += 1
-            while next_yield < ci and units_left[next_yield] == 0:
-                yield outs.pop(next_yield)
-                next_yield += 1
+            yield from finished()
         while pending:
             drain_one()
-            while next_yield < ci and units_left[next_yield] == 0:
-                yield outs.pop(next_yield)
-                next_yield += 1
+            yield from finished()
 
-    def _join_rows(self, chunks) -> np.ndarray:
-        """`_decode_chunks`' arrays as one ``[n, block_size]`` array, in one
-        `hsc:decode.stack` span: the only chunk as it is, else one
-        concatenation; ``[0, block_size]`` float32 for none."""
-        parts = list(chunks)
-        if not parts:
-            return np.zeros((0, self.cfg.block_size), dtype=np.float32)
+    def _join_rows(self, cfg, blocks, n: int) -> np.ndarray:
+        """`_decode_chunks` of `blocks` (`n` of them) as one ``[n,
+        block_size]`` float32 array, allocated once in the one
+        `hsc:decode.stack` span; each decode unit's rows are drained
+        straight into their place in it (`hsc:decode.drain`), so a row is
+        copied on the host once.  Counts those rows in
+        `BLOCKS_JOINED_IN_PLACE`.  The output holds what `_decode_chunks`
+        yields: a chunk yielded from elsewhere (a wrapper that alters the
+        rows, as the benchmark's fault tests do) is copied into place."""
+        global BLOCKS_JOINED_IN_PLACE
         with scope("hsc:decode.stack"):
-            return np.concatenate(parts) if len(parts) > 1 else parts[0]
+            out = np.empty((n, cfg.block_size), np.float32)
+        row = 0
+        for chunk in self._decode_chunks(cfg, blocks, cfg.decode_mode, cfg.rep_bits, out):
+            dst = out[row : row + len(chunk)]
+            if chunk.ctypes.data == dst.ctypes.data:
+                BLOCKS_JOINED_IN_PLACE += len(chunk)
+            else:
+                np.copyto(dst, chunk)
+            row += len(chunk)
+        return out
 
-    def _container_chunks(self, blob: bytes, indices=None):
-        """`_decode_chunks` of all of `blob`'s blocks (`_container_blocks`),
-        or of those of `indices` in the order given, at `_block_offsets`,
-        so that only their records are unpacked."""
+    def _container_selection(self, blob: bytes, indices=None):
+        """``(cfg, blocks, n)`` for `_decode_chunks`: the stream header's
+        config and all of `blob`'s `n` blocks (`_container_blocks`), or
+        those of `indices` in the order given, at `_block_offsets`, so that
+        only their records are unpacked."""
         cfg, n_blocks = peek_corpus_header(blob)
         self._check_geometry(cfg)
         if indices is None:
-            blocks = _container_blocks(blob, n_blocks)
-        else:
-            indices = [int(i) for i in indices]
-            for i in indices:
-                if not 0 <= i < n_blocks:
-                    raise IndexError(f"block {i} out of range [0, {n_blocks})")
-            blocks = _Records(blob, _block_offsets(blob, n_blocks)[np.asarray(indices, np.int64)])
-        # the stream header's decode arithmetic is authoritative
-        return self._decode_chunks(cfg, blocks, cfg.decode_mode, cfg.rep_bits)
+            return cfg, _container_blocks(blob, n_blocks), n_blocks
+        indices = [int(i) for i in indices]
+        for i in indices:
+            if not 0 <= i < n_blocks:
+                raise IndexError(f"block {i} out of range [0, {n_blocks})")
+        offsets = _block_offsets(blob, n_blocks)[np.asarray(indices, np.int64)]
+        return cfg, _Records(blob, offsets), len(indices)
 
     def decode_stream(self, blob: bytes, indices=None):
         """Yield decoded blocks ``[block_size]`` in container order, bounded
@@ -893,19 +926,21 @@ class CorpusEncoder:
         streams only those blocks, in the order given: offsets from the
         seek-index footer when the container carries a current one, else
         one header scan; only the selected payloads are unpacked."""
-        for chunk in self._container_chunks(blob, indices):
+        cfg, blocks, _ = self._container_selection(blob, indices)
+        # the stream header's decode arithmetic is authoritative
+        for chunk in self._decode_chunks(cfg, blocks, cfg.decode_mode, cfg.rep_bits):
             yield from chunk
 
     def decode_blocks(self, blob: bytes, indices) -> np.ndarray:
         """Random-access decode: only the requested blocks, as
         ``[len(indices), block_size]`` in the order given, each row
         byte-identical to the matching row of `decode`."""
-        return self._join_rows(self._container_chunks(blob, list(indices)))
+        return self._join_rows(*self._container_selection(blob, list(indices)))
 
     def decode(self, blob: bytes) -> np.ndarray:
         """Decode a container -> ``[n_blocks, block_size]`` float32."""
         t0 = time.perf_counter()
-        out = self._join_rows(self._container_chunks(blob))
+        out = self._join_rows(*self._container_selection(blob))
         dt = time.perf_counter() - t0
         self.metrics.log(
             {
@@ -989,7 +1024,8 @@ class CorpusReader:
 
     def __getitem__(self, i) -> np.ndarray:
         if isinstance(i, slice):
-            return self.codec._join_rows(self._chunks(*i.indices(self.n_blocks)[:2]))
+            blocks = self._records(*i.indices(self.n_blocks)[:2])
+            return self.codec._join_rows(self.cfg, blocks, len(blocks.offsets))
         i = int(i)
         if i < 0:
             i += self.n_blocks
@@ -998,13 +1034,13 @@ class CorpusReader:
     def rows(self, start: int = 0, stop: int | None = None):
         """Yield decoded rows [start, stop), chunked by the codec's
         batch_size, device chunks pipelined, bounded memory."""
-        for chunk in self._chunks(start, stop):
+        blocks = self._records(start, stop)
+        for chunk in self.codec._decode_chunks(self.cfg, blocks, self.cfg.decode_mode, self.cfg.rep_bits):
             yield from chunk
 
-    def _chunks(self, start: int, stop: int | None):
+    def _records(self, start: int, stop: int | None) -> _Records:
         start, stop, _ = slice(start, stop).indices(self.n_blocks)
-        blocks = _Records(self._data, self._offsets[start:stop])
-        return self.codec._decode_chunks(self.cfg, blocks, self.cfg.decode_mode, self.cfg.rep_bits)
+        return _Records(self._data, self._offsets[start:stop])
 
     def close(self) -> None:
         if getattr(self, "_data", None) is not None:

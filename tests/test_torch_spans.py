@@ -130,7 +130,8 @@ def test_reader_slice_records_its_spans(geometry, distributed, tmp_path):
         "hsc:decode.stack": 1,
     }
     _assert_disjoint(spans)
-    assert spans[-1][0] == "hsc:decode.stack"
+    # the join allocates its one output first; the drains fill it
+    assert spans[0][0] == "hsc:decode.stack"
 
 
 @pytest.mark.parametrize("geometry", ["flat", "hier"])
