@@ -73,6 +73,10 @@ BLOCKS_UNPACKED_SINGLY = 0
 # rows a decode drained straight into a join's output (`_join_rows`) since
 # import (or since a caller reset it to 0)
 BLOCKS_JOINED_IN_PLACE = 0
+# block rows a decode added on the host into a chunk summed per level (one
+# a block a level unit of a distributed or mixed chunk) since import (or
+# since a caller reset it to 0)
+ROWS_SUMMED_BY_LEVEL = 0
 
 
 class _Records(NamedTuple):
@@ -803,7 +807,10 @@ class CorpusEncoder:
         Spans, disjoint and none across a `yield`: `hsc:decode.unpack` a
         chunk pulled from `_chunks`, `hsc:decode.dispatch` a decode unit
         (an exotic chunk's per-block loop is one), `hsc:decode.drain` a
-        unit's wait, copy out of pinned memory and host sum."""
+        unit's wait and copy out of pinned memory, `hsc:decode.levelsum`
+        the host sum of a chunk summed per level: once for the zeroing of
+        its rows, once a unit for the unit's adds (counted in
+        `ROWS_SUMMED_BY_LEVEL`)."""
         chunks = self._chunks(cfg, blocks, mode)
         # pending: (chunk index, block ids or None for the whole chunk, the
         # rows' HostCopy)
@@ -813,6 +820,7 @@ class CorpusEncoder:
         next_yield = 0
 
         def drain_one():
+            global ROWS_SUMMED_BY_LEVEL
             with scope("hsc:decode.drain"):
                 ci, ids, copy = pending.popleft()
                 if ids is None and out is not None:
@@ -821,9 +829,12 @@ class CorpusEncoder:
                     outs[ci] = copy.numpy()[:, :, 0]
                 else:
                     rows = copy.numpy()[:, :, 0]
+            if ids is not None:
+                with scope("hsc:decode.levelsum"):
                     for j, b in enumerate(ids):
                         outs[ci][b] += rows[j]
-                units_left[ci] -= 1
+                ROWS_SUMMED_BY_LEVEL += len(ids)
+            units_left[ci] -= 1
 
         def zeroed(ci, n):
             # a chunk's rows that are summed into: zero, then += as the
@@ -872,7 +883,8 @@ class CorpusEncoder:
                 units_left[ci] = 0
             else:
                 if not (units and units[0][0] is None):  # summed per level
-                    zeroed(ci, n)
+                    with scope("hsc:decode.levelsum"):
+                        zeroed(ci, n)
                 units_left[ci] = len(units)
                 for ids, level, arrays in units:
                     submit(ci, ids, level, arrays)
@@ -885,12 +897,14 @@ class CorpusEncoder:
     def _join_rows(self, cfg, blocks, n: int) -> np.ndarray:
         """`_decode_chunks` of `blocks` (`n` of them) as one ``[n,
         block_size]`` float32 array, allocated once in the one
-        `hsc:decode.stack` span; each decode unit's rows are drained
+        `hsc:decode.stack` span; a top-only decode unit's rows are drained
         straight into their place in it (`hsc:decode.drain`), so a row is
-        copied on the host once.  Counts those rows in
-        `BLOCKS_JOINED_IN_PLACE`.  The output holds what `_decode_chunks`
-        yields: a chunk yielded from elsewhere (a wrapper that alters the
-        rows, as the benchmark's fault tests do) is copied into place."""
+        copied on the host once, and a chunk summed per level is zeroed
+        and summed in its place (`hsc:decode.levelsum`).  Counts the rows
+        made in place in `BLOCKS_JOINED_IN_PLACE`.  The output holds what
+        `_decode_chunks` yields: a chunk yielded from elsewhere (a wrapper
+        that alters the rows, as the benchmark's fault tests do) is copied
+        into place."""
         global BLOCKS_JOINED_IN_PLACE
         with scope("hsc:decode.stack"):
             out = np.empty((n, cfg.block_size), np.float32)

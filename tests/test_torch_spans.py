@@ -5,10 +5,13 @@ on a mesh of CPU shards) records `hsc:encode.gather`, `.pipeline` and
 `.assemble` once a call (gather and pipeline once a super-batch on a mesh)
 and `hsc:encode.pack` once a batch; a `CorpusReader` slice records
 `hsc:decode.unpack` once a chunk (and once for the pull that finds the
-blocks spent), `.dispatch` and `.drain` once a decode unit, and `.stack`
-once.  The spans of a path never overlap.  Containers and rows are the
-same bytes with and without a profiler, and without one no span reaches
-`record_function`.
+blocks spent), `.dispatch` and `.drain` once a decode unit, `.stack` once,
+and, where a chunk is summed per level (a distributed container),
+`.levelsum` once for its zeroing and once a decode unit, while
+`runtime.ROWS_SUMMED_BY_LEVEL` grows by the units' blocks (by none on a
+top-only slice).  The spans of a path never overlap.  Containers and rows
+are the same bytes with and without a profiler, and without one no span
+reaches `record_function`.
 """
 
 import json
@@ -17,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from hsc_torch import runtime
 from hsc_torch.config import make_test_config
 from hsc_torch.dictionary import MultilevelDictionary
 from hsc_torch.io.bitstream import iter_blocks
@@ -119,16 +123,28 @@ def test_reader_slice_records_its_spans(geometry, distributed, tmp_path):
     # one decode unit a level present in the chunk
     units = sum(len({lv for streams in chunk for lv, _ in streams}) for chunk in chunks)
     assert units > len(chunks) or not distributed
+    # a chunk is summed per level unless each block holds one top stream
+    top = mld.config.num_levels - 1
+    summed = [c for c in chunks if not all([lv for lv, _ in s] == [top] for s in c)]
+    assert len(summed) == len(chunks) if distributed else not summed
+    summed_units = sum(len({lv for streams in c for lv, _ in streams}) for c in summed)
     with CorpusReader(str(path), mld, device="cpu", batch_size=BATCH) as reader:
         plain = reader[lo:hi]
+        before = runtime.ROWS_SUMMED_BY_LEVEL
         rows, spans = _traced(lambda: reader[lo:hi], tmp_path)
+        grew = runtime.ROWS_SUMMED_BY_LEVEL - before
     assert rows.tobytes() == plain.tobytes()
-    assert _counts(spans) == {
+    want = {
         "hsc:decode.unpack": len(chunks) + 1,
         "hsc:decode.dispatch": units,
         "hsc:decode.drain": units,
         "hsc:decode.stack": 1,
     }
+    if summed:
+        want["hsc:decode.levelsum"] = len(summed) + summed_units
+    assert _counts(spans) == want
+    # each unit adds its blocks' rows: one a stream of a chunk summed per level
+    assert grew == sum(len(streams) for c in summed for streams in c)
     _assert_disjoint(spans)
     # the join allocates its one output first; the drains fill it
     assert spans[0][0] == "hsc:decode.stack"
