@@ -1,4 +1,4 @@
-"""ctypes binding for the batched block-record packer and unpacker
+"""ctypes binding for the batched block-record packer and unpackers
 (hsc_torch/csrc/record_pack.cpp).
 
 `pack_records` writes a batch's fixed-entropy top-form block records in one
@@ -8,9 +8,12 @@ _emit_batched` takes it where every block would get that form.
 `unpack_records` is the inverse for a decode chunk: the records at given
 offsets of a container straight into the padded arrays of its decode
 unit, equal to `io.bitstream.unpack_block` then `models.coder.pad_streams`;
-`runtime.CorpusEncoder._chunks` takes it for fixed-entropy containers, and
-where it gives up unpacks block by block and pads the streams into the
-same arrays.  The library is compiled on demand with g++, cached under
+`runtime.CorpusEncoder._chunks` takes it for fixed-entropy containers.
+Where it gives up, `unpack_level_records` takes records of several levels
+(the distributed form) into one padded array set per level, equal to
+`unpack_block` then `CorpusEncoder._units`; where that gives up too, the
+chunk unpacks block by block and pads the streams into the same arrays.
+The library is compiled on demand with g++, cached under
 ``build/hsc_torch_record_pack/`` at the repository root keyed on a hash of
 the source, as `io.native` builds `csrc/bitpack.cpp`.  When g++ is
 missing, the build fails or ``HSC_TPU_NO_NATIVE`` is set, `available()` is
@@ -39,6 +42,20 @@ RECORD_HEADER_BYTES = 10
 
 _lib = None
 _tried = False
+
+
+class _LevelRows(ctypes.Structure):
+    """`LevelRows` of csrc/record_pack.cpp: one level's geometry and
+    capacity in, the number of its rows out, and where they go."""
+
+    _fields_ = [
+        ("pos_bits", ctypes.c_int32),
+        ("atom_bits", ctypes.c_int32),
+        ("num_positions", ctypes.c_int64),
+        ("num_atoms", ctypes.c_int64),
+        ("cap", ctypes.c_int32),
+        ("rows", ctypes.c_int32),
+    ] + [(name, ctypes.c_void_p) for name in ("pos", "atom", "code", "counts", "scales", "ids")]
 
 
 def _lib_path() -> str:
@@ -80,6 +97,10 @@ def _load():
         [p, i64, p] + [i32] * 6 + [i64, i64, i32] + [p] * 5
     )
     lib.hsc_unpack_records.restype = i32
+    lib.hsc_unpack_level_records.argtypes = (
+        [p, i64, p] + [i32] * 4 + [ctypes.POINTER(_LevelRows)]
+    )
+    lib.hsc_unpack_level_records.restype = i32
     _lib = lib
     return _lib
 
@@ -162,3 +183,50 @@ def unpack_records(cfg: CodecConfig, level: int, data, offsets, cap: int):
     if status:
         return None
     return events[0], events[1], events[2], cnt, scl
+
+
+def unpack_level_records(cfg: CodecConfig, data, offsets, caps):
+    """The decode units ``[(ids, level, (pos, atm, cds, cnt, scl))]`` of the
+    blocks whose records start at `offsets` in `data` (read in place, as
+    `unpack_records` reads it), from one native call: one unit a level held
+    by some block, ascending, each holding the padded arrays ([rows,
+    caps[level]] int32 three times, [rows] int32, [rows] float32) of the
+    blocks that hold a stream of that level and those blocks' indices in
+    `offsets` (a list, ascending).  Equal to `io.bitstream.unpack_block` of
+    each then `runtime.CorpusEncoder._units`.  None where the library is not
+    available, the entropy is not fixed, or a record's levels are not
+    strictly ascending below ``cfg.num_levels``, or a stream holds more than
+    its level's cap, runs past the buffer or fails a range check of
+    `unpack_stream`: the caller then unpacks those blocks one by one."""
+    lib = _load()
+    if lib is None or cfg.entropy != "fixed":
+        return None
+    buf = np.frombuffer(data, np.uint8)
+    offs = np.ascontiguousarray(offsets, np.int64)
+    nb = offs.shape[0]
+    levels = (_LevelRows * cfg.num_levels)()
+    arrays = []
+    for level, lv in enumerate(levels):
+        events = np.empty((3, nb, caps[level]), np.int32)
+        cnt = np.empty(nb, np.int32)
+        scl = np.empty(nb, np.float32)
+        ids = np.empty(nb, np.int32)
+        lv.pos_bits, lv.atom_bits = cfg.pos_bits(level), cfg.atom_bits(level)
+        lv.num_positions = cfg.num_positions(level)
+        lv.num_atoms = cfg.counts_with_singletons[level]
+        lv.cap = caps[level]
+        lv.pos, lv.atom, lv.code = (e.ctypes.data for e in events)
+        lv.counts, lv.scales, lv.ids = cnt.ctypes.data, scl.ctypes.data, ids.ctypes.data
+        arrays.append((events, cnt, scl, ids))
+    status = lib.hsc_unpack_level_records(
+        buf.ctypes.data, buf.shape[0], offs.ctypes.data, nb,
+        cfg.amp_bits, cfg.amp_maxcode, cfg.num_levels, levels,
+    )
+    if status:
+        return None
+    units = []
+    for level, (lv, (events, cnt, scl, ids)) in enumerate(zip(levels, arrays)):
+        r = lv.rows
+        if r:
+            units.append((ids[:r].tolist(), level, (events[0, :r], events[1, :r], events[2, :r], cnt[:r], scl[:r])))
+    return units

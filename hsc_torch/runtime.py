@@ -66,9 +66,11 @@ from .utils.profiling import scope
 BLOCKS_PACKED_BATCHED = 0
 BLOCKS_PACKED_SINGLY = 0
 # blocks a decode unpacked since import (or since a caller reset them to 0):
-# by the batched native record unpacker, a chunk a call, and one by one
-# through `io.bitstream.unpack_block`
+# by the batched native record unpacker, a top-only chunk a call; by the
+# native per-level unpacker, a chunk of records of several levels a call;
+# and one by one through `io.bitstream.unpack_block`
 BLOCKS_UNPACKED_BATCHED = 0
+BLOCKS_UNPACKED_BY_LEVEL = 0
 BLOCKS_UNPACKED_SINGLY = 0
 # rows a decode drained straight into a join's output (`_join_rows`) since
 # import (or since a caller reset it to 0)
@@ -83,6 +85,16 @@ class _Records(NamedTuple):
     """A decode's blocks as records: the container's bytes (an mmap or any
     buffer) and each block's record offset in them, in decode order."""
 
+    data: object
+    offsets: np.ndarray
+
+
+class _ChunkRecords(NamedTuple):
+    """One decode chunk's records for `CorpusEncoder._units`: the stream's
+    config that reads them, the container's bytes and the chunk's record
+    offsets in them."""
+
+    cfg: CodecConfig
     data: object
     offsets: np.ndarray
 
@@ -739,10 +751,12 @@ class CorpusEncoder:
         ``(blocks in the chunk, per-block [(level, stream)] lists,
         `_units`)``.  From `_Records`
         a top-only chunk unpacks in one `record_pack.unpack_records` call
-        straight into its one unit's arrays (no lists); else, and where that
-        call gives up, block by block through `unpack_block` (which raises
-        on a faulty record).  Counts the blocks in `BLOCKS_UNPACKED_*`."""
-        global BLOCKS_UNPACKED_BATCHED, BLOCKS_UNPACKED_SINGLY
+        straight into its one unit's arrays (no lists); where that call
+        gives up, `_units` takes the chunk's records (one native call a
+        chunk of records of several levels); where it gives up too, block
+        by block through `unpack_block` (which raises on a faulty record).
+        Counts the blocks in `BLOCKS_UNPACKED_*`."""
+        global BLOCKS_UNPACKED_BATCHED, BLOCKS_UNPACKED_BY_LEVEL, BLOCKS_UNPACKED_SINGLY
         size = max(self.batch_size, 1)
         top = cfg.num_levels - 1
         if not isinstance(blocks, _Records):
@@ -761,6 +775,9 @@ class CorpusEncoder:
             if padded is not None:
                 BLOCKS_UNPACKED_BATCHED += len(offs)
                 yield len(offs), None, [(None, top, padded)]
+            elif (units := self._units(_ChunkRecords(cfg, data, offs), top, mode)) is not None:
+                BLOCKS_UNPACKED_BY_LEVEL += len(offs)
+                yield len(offs), None, units
             else:
                 BLOCKS_UNPACKED_SINGLY += len(offs)
                 chunk = [unpack_block(cfg, data, int(o))[0] for o in offs]
@@ -771,7 +788,17 @@ class CorpusEncoder:
         arrays ``(pos, atm, cds, cnt, scl)`` of one decode (the coder's
         `_decode_arrays`) and the chunk rows they add to (None: all).  One
         unit a top-only chunk, one a level a distributed or mixed one (at
-        most one stream per level per block, ascending); else None."""
+        most one stream per level per block, ascending); else None.  A
+        chunk of per-block ``[(level, stream)]`` lists, or `_ChunkRecords`
+        read in one `record_pack.unpack_level_records` call straight into
+        the same units (None where that call gives up: the caller unpacks
+        the chunk block by block)."""
+        if isinstance(chunk, _ChunkRecords):
+            # `_decode_arrays`'s capacity a level: a longer stream sends its
+            # chunk to the per-block path, which buckets it
+            caps = [max(c, 1) for c in self.cfg.num_coefs]
+            return record_pack.unpack_level_records(chunk.cfg, chunk.data, chunk.offsets, caps)
+
         def unit(ids, level, streams):
             return ids, level, self.coder._decode_arrays(streams, level, mode)[:5]
 

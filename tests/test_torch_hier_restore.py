@@ -7,6 +7,8 @@ block 2048).
   (`levels.decode_levels`) bit for bit, at batch 2 and 3, at starts and
   ends inside and on chunk boundaries, with blocks that hold level 0 only
   and blocks that hold level 1 only among the blocks that hold both;
+- those slices unpack each chunk in one native call
+  (`record_pack.unpack_level_records`), no block one by one;
 - so does a container of the port's own ``CorpusEncoder(distributed=True)``
   encode;
 - the writer's records are the port's `_emit_record` bytes, and the port's
@@ -24,6 +26,7 @@ import sys
 import numpy as np
 import pytest
 
+from hsc_torch import runtime
 from hsc_torch.io.bitstream import unpack_block
 from hsc_torch.oracle.mp import LevelStream, to_distributed
 from hsc_torch.params import dictionary_from_arrays
@@ -109,6 +112,23 @@ def test_reader_slices_of_the_written_container_are_the_reference(batch, lo, hi,
         rows = reader[lo:hi]
     assert rows.shape == (hi - lo, HIER["block_size"]) and rows.dtype == np.float32
     _assert_rows_are_the_reference(data, rows, lo)
+
+
+@pytest.mark.parametrize("batch", [2, 3])
+def test_reader_slices_unpack_by_level_and_are_the_reference(batch, tmp_path):
+    """Every block of the written container's slices unpacks in the native
+    per-level call (`runtime.BLOCKS_UNPACKED_BY_LEVEL`), none singly, and
+    the rows are the reference's."""
+    data = _container()
+    path = tmp_path / "levels.hsct"
+    path.write_bytes(data)
+    _, _, port = _dictionaries()
+    before = (runtime.BLOCKS_UNPACKED_BATCHED, runtime.BLOCKS_UNPACKED_BY_LEVEL, runtime.BLOCKS_UNPACKED_SINGLY)
+    with CorpusReader(str(path), port, device="cpu", batch_size=batch) as reader:
+        rows = reader[1:N_BLOCKS]
+    after = (runtime.BLOCKS_UNPACKED_BATCHED, runtime.BLOCKS_UNPACKED_BY_LEVEL, runtime.BLOCKS_UNPACKED_SINGLY)
+    assert tuple(x - y for x, y in zip(after, before)) == (0, N_BLOCKS - 1, 0)
+    _assert_rows_are_the_reference(data, rows, 1)
 
 
 @pytest.mark.parametrize("batch", [2, 3])

@@ -1,5 +1,6 @@
-"""The batched block-record unpacker (`hsc_torch.record_pack.unpack_records`,
-`csrc/record_pack.cpp::hsc_unpack_records`) on the CPU.
+"""The batched block-record unpackers (`hsc_torch.record_pack.unpack_records`,
+`csrc/record_pack.cpp::hsc_unpack_records`, and the per-level
+`unpack_level_records`, `hsc_unpack_level_records`) on the CPU.
 
 `CorpusEncoder._decode_chunks` unpacks a chunk of a fixed-entropy
 container's records in one native call, straight into the decode's padded
@@ -9,9 +10,13 @@ a current footer), and block by block otherwise.  The native arrays equal
 `unpack_block` then `pad_streams` bit for bit at the flagship widths and at
 odd ones (events past 57 bits, empty streams, a record that ends the
 buffer, a scattered selection); a faulty record sends its chunk to the
-per-block path, which raises the per-block error; distributed, mixed and
-over-long chunks decode there byte-identically; the runtime's counters name
-the path each chunk took, also on a mesh."""
+per-block path, which raises the per-block error.  A chunk of records of
+several levels (the distributed form) unpacks in one per-level native call
+into the units `unpack_block` then `CorpusEncoder._units` give, bit for bit
+at 2 and 3 levels, and a faulty one gives up; distributed, mixed and
+over-long chunks decode byte-identically to the per-block path, and such a
+chunk's units come through `_units`; the runtime's counters name the path
+each chunk took, also on a mesh."""
 
 import dataclasses
 import struct
@@ -37,6 +42,7 @@ CONFIGS = {
     "flat": dict(counts=(12,)),
     "two_level": dict(counts=(12, 8), scales=(16, 48), num_coefs=(96, 48)),
     "rice": dict(counts=(12,), entropy="rice"),
+    "three_level": dict(counts=(12, 8, 6), scales=(16, 48, 96), num_coefs=(96, 48, 24)),
 }
 
 
@@ -59,12 +65,16 @@ def per_block(monkeypatch):
     return force
 
 
+def _unpack_counts():
+    return (runtime.BLOCKS_UNPACKED_BATCHED, runtime.BLOCKS_UNPACKED_BY_LEVEL,
+            runtime.BLOCKS_UNPACKED_SINGLY)
+
+
 def _counted(decode):
-    """(result of `decode()`, blocks unpacked batched, blocks unpacked
-    singly)."""
-    b0, s0 = runtime.BLOCKS_UNPACKED_BATCHED, runtime.BLOCKS_UNPACKED_SINGLY
+    """(result of `decode()`, (blocks unpacked batched, by level, singly))."""
+    before = _unpack_counts()
     out = decode()
-    return out, runtime.BLOCKS_UNPACKED_BATCHED - b0, runtime.BLOCKS_UNPACKED_SINGLY - s0
+    return out, tuple(a - b for a, b in zip(_unpack_counts(), before))
 
 
 def _read(path, mld, batch_size, lo, hi, mesh=None):
@@ -259,6 +269,162 @@ def test_unpack_records_gives_up_past_cap_or_buffer():
     assert record_pack.unpack_records(rice, 0, data, offsets, 9) is None
 
 
+def _level_records(cfg, blocks):
+    """Block records back to back, each ``u8 n_streams`` then its ``(level,
+    stream)`` streams (`_emit_record`'s distributed form), and their
+    offsets."""
+    parts, offsets, off = [], [], 0
+    for streams in blocks:
+        rec = struct.pack("<B", len(streams)) + b"".join(pack_stream(cfg, lv, st) for lv, st in streams)
+        parts.append(rec)
+        offsets.append(off)
+        off += len(rec)
+    return b"".join(parts), np.asarray(offsets, np.int64)
+
+
+def _caps(cfg):
+    return [max(c, 1) for c in cfg.num_coefs]
+
+
+def _units_per_block(codec, cfg, data, offsets):
+    """`unpack_block` of each record then `CorpusEncoder._units`, with a
+    top-only chunk's rows (named None there: all of them) named."""
+    chunk = [unpack_block(cfg, data, int(o))[0] for o in offsets]
+    units = codec._units(chunk, cfg.num_levels - 1, cfg.decode_mode)
+    return [(list(range(len(chunk))) if ids is None else ids, lv, arrays) for ids, lv, arrays in units]
+
+
+# which levels a block of the chunk holds: one level in every block, or
+# every subset of the levels (none and all of them included) in turn
+HOLDINGS = {
+    "level_0": lambda levels, b: [0],
+    "level_1": lambda levels, b: [1],
+    "mixed": lambda levels, b: [lv for lv in range(levels) if (b + 1) >> lv & 1],
+}
+
+
+@pytest.mark.parametrize("selection", ["all", "scattered"])
+@pytest.mark.parametrize("holding", list(HOLDINGS))
+@pytest.mark.parametrize("name", ["two_level", "three_level"])
+def test_unpack_level_records_equal_unpack_block_and_units(name, holding, selection):
+    """One native call gives `unpack_block` then `_units`: the units in the
+    same order, each level's block indices, row counts and arrays bit for
+    bit, at 2 and 3 levels, with streams of 0 events and of a level's whole
+    cap, a block holding no stream, and a scattered selection with a
+    repeat."""
+    mld = _mld(name)
+    cfg = mld.config
+    codec = CorpusEncoder(mld, device="cpu", batch_size=4)
+    rng = np.random.default_rng(cfg.num_levels * 10 + len(holding))
+    blocks = []
+    for b in range(9):
+        streams = []
+        for lv in HOLDINGS[holding](cfg.num_levels, b):
+            n = [0, 1, cfg.num_coefs[lv], int(rng.integers(0, cfg.num_coefs[lv]))][b % 4]
+            streams.append((lv, _random_stream(rng, _geometry(cfg, lv), n)))
+        blocks.append(streams)
+    data, offsets = _level_records(cfg, blocks)
+    if selection == "scattered":
+        offsets = offsets[[8, 2, 5, 2, 0, 6]]
+    got = record_pack.unpack_level_records(cfg, data, offsets, _caps(cfg))
+    assert got is not None
+    want = _units_per_block(codec, cfg, data, offsets)
+    assert [(ids, lv) for ids, lv, _ in got] == [(ids, lv) for ids, lv, _ in want]
+    assert all(type(i) is int for ids, _, _ in got for i in ids)
+    for (ids, lv, arrays), (_, _, expected) in zip(got, want):
+        assert arrays[0].shape == (len(ids), _caps(cfg)[lv])
+        _assert_same_arrays(arrays, expected)
+
+
+def _level_fault(cfg, rng, what):
+    """The records of a chunk whose last record is faulty in one way, and
+    what the per-block path does with that record: raise, or leave the
+    chunk to `_units`, which gives None (levels out of order) or buckets
+    a stream past its level's cap."""
+    top = cfg.num_levels - 1
+
+    def stream(lv, n=5, **bad):
+        st = _random_stream(rng, _geometry(cfg, lv), n)
+        for field, value in bad.items():
+            getattr(st, field)[n - 1] = value
+        return st
+
+    good = [[(0, stream(0)), (top, stream(top))], [(top, stream(top))], [(0, stream(0))]]
+    if what.startswith(("position", "atom", "code")):
+        field, lv = what.split("_l")
+        lv = int(lv)
+        value = {"position": cfg.num_positions(lv), "atom": cfg.counts_with_singletons[lv],
+                 "code": cfg.amp_maxcode + 1}[field]
+        last = [(0, stream(0)), (top, stream(top))]
+        last[lv if lv == 0 else 1] = (lv, stream(lv, **{field + "s": value}))
+        fate = "raises"
+    elif what == "repeated":
+        last, fate = [(0, stream(0)), (0, stream(0))], "exotic"
+    elif what == "descending":
+        last, fate = [(top, stream(top)), (0, stream(0))], "exotic"
+    elif what == "past_levels":
+        last, fate = [(0, stream(0)), (top, stream(top))], "raises"
+    elif what == "over_cap":
+        last, fate = [(0, stream(0, cfg.num_coefs[0] + 1)), (top, stream(top))], "buckets"
+    else:
+        last, fate = [(0, stream(0)), (top, stream(top))], "raises"
+    data, offsets = _level_records(cfg, good + [last])
+    if what == "header":  # the second stream's header cut short
+        data = data[: int(offsets[-1]) + 1 + len(pack_stream(cfg, 0, last[0][1])) + 4]
+    elif what == "stream_missing":  # the buffer ends where the second stream would start
+        data = data[: int(offsets[-1]) + 1 + len(pack_stream(cfg, 0, last[0][1]))]
+    elif what == "payload":
+        data = data[:-1]
+    elif what == "past_levels":  # a level byte the packer cannot write
+        at = int(offsets[-1]) + 1 + len(pack_stream(cfg, 0, last[0][1]))
+        data = data[:at] + bytes([cfg.num_levels]) + data[at + 1 :]
+    return data, offsets, fate
+
+
+LEVEL_FAULTS = [
+    "position_l0", "position_l1", "atom_l0", "atom_l1", "code_l0", "code_l1",
+    "repeated", "descending", "past_levels", "over_cap", "header", "stream_missing", "payload",
+]
+
+
+@pytest.mark.parametrize("what", LEVEL_FAULTS)
+def test_unpack_level_records_gives_up_on_a_faulty_record(what):
+    """A position, atom or code out of range at either level, a level
+    repeated, descending or past the level count, a stream past its level's
+    cap, a header or a payload cut short, a declared stream missing at the
+    buffer's end: the native call gives up, the
+    good records before it still unpack, and the per-block path raises,
+    leaves the chunk to the per-block decode, or buckets the stream."""
+    mld = _mld("two_level")
+    cfg = mld.config
+    data, offsets, fate = _level_fault(cfg, np.random.default_rng(len(what)), what)
+    caps = _caps(cfg)
+    assert record_pack.unpack_level_records(cfg, data, offsets[:-1], caps) is not None
+    assert record_pack.unpack_level_records(cfg, data, offsets, caps) is None
+    assert record_pack.unpack_level_records(cfg, data, offsets[-1:], caps) is None
+    if fate == "raises":
+        with pytest.raises((ValueError, struct.error)):
+            unpack_block(cfg, data, int(offsets[-1]))
+        return
+    codec = CorpusEncoder(mld, device="cpu")
+    units = codec._units([unpack_block(cfg, data, int(offsets[-1]))[0]], cfg.num_levels - 1, cfg.decode_mode)
+    if fate == "exotic":
+        assert units is None
+    else:
+        assert units[0][2][0].shape[1] > caps[0]
+
+
+def test_unpack_level_records_gives_up_on_rice_and_wide_fields():
+    """A Rice container, or a field wider than 32 bits, gives None."""
+    cfg = _mld("two_level").config
+    data, offsets = _level_records(cfg, [[(0, _random_stream(np.random.default_rng(1), _geometry(cfg, 0), 3))]])
+    assert record_pack.unpack_level_records(cfg, data, offsets, _caps(cfg)) is not None
+    rice = dataclasses.replace(cfg, entropy="rice")
+    assert record_pack.unpack_level_records(rice, data, offsets, _caps(cfg)) is None
+    wide = _Geometry(33, 4, 6, 1 << 33, 12)
+    assert record_pack.unpack_level_records(wide, data, offsets, [16]) is None
+
+
 def _indexed(tmp_path, name, n_blocks, **options):
     mld = _mld(name)
     blob = CorpusEncoder(mld, device="cpu", batch_size=4, **options).encode(
@@ -282,11 +448,11 @@ def test_reader_slices_batched_equal_per_block(tmp_path, per_block, name, option
     2-level top-only one) unpack every block batched and equal the
     per-block path's rows byte for byte."""
     mld, _, path = _indexed(tmp_path, name, 7, **options)
-    rows, n_batched, n_single = _counted(lambda: _read(path, mld, batch, lo, hi))
-    assert (n_batched, n_single) == (hi - lo, 0)
+    rows, counts = _counted(lambda: _read(path, mld, batch, lo, hi))
+    assert counts == (hi - lo, 0, 0)
     per_block()
-    single, n_batched, n_single = _counted(lambda: _read(path, mld, batch, lo, hi))
-    assert (n_batched, n_single) == (0, hi - lo)
+    single, counts = _counted(lambda: _read(path, mld, batch, lo, hi))
+    assert counts == (0, 0, hi - lo)
     assert rows.dtype == single.dtype and rows.tobytes() == single.tobytes()
 
 
@@ -343,32 +509,80 @@ def _mixed_container(tmp_path, mld):
 
 
 def test_fallback_chunks_decode_identically(tmp_path, per_block):
-    """Distributed, mixed and over-long chunks take the per-block path, the
-    others the batched one, and every row equals the per-block path's:
-    through `CorpusReader`, `decode_blocks` and `decode`."""
+    """Top-only chunks take the batched path, distributed and mixed ones the
+    per-level one, over-long ones the per-block one, and every row equals
+    the per-block path's: through `CorpusReader`, `decode_blocks` and
+    `decode`."""
     mld = _mld("two_level")
     blob, path = _mixed_container(tmp_path, mld)
     codec = CorpusEncoder(mld, device="cpu", batch_size=2)
     order = [6, 0, 1, 5, 3, 2]
-    rows, n_batched, n_single = _counted(lambda: _read(path, mld, 2, 0, 7))
-    assert (n_batched, n_single) == (3, 4)
-    picked, n_batched, n_single = _counted(lambda: codec.decode_blocks(blob, order))
-    assert (n_batched, n_single) == (2, 4)  # chunks [6, 0], [1, 5], [3, 2]
-    whole, n_batched, n_single = _counted(lambda: codec.decode(blob))
-    assert (n_batched, n_single) == (3, 4)
+    rows, counts = _counted(lambda: _read(path, mld, 2, 0, 7))
+    assert counts == (3, 2, 2)
+    picked, counts = _counted(lambda: codec.decode_blocks(blob, order))
+    assert counts == (2, 2, 2)  # chunks [6, 0], [1, 5], [3, 2]
+    whole, counts = _counted(lambda: codec.decode(blob))
+    assert counts == (3, 2, 2)
     per_block()
     assert rows.tobytes() == _read(path, mld, 2, 0, 7).tobytes()
     assert picked.tobytes() == codec.decode_blocks(blob, order).tobytes()
     assert whole.tobytes() == codec.decode(blob).tobytes() == rows.tobytes()
 
 
-@pytest.mark.parametrize("name, options", [("rice", dict()), ("two_level", dict(distributed=True))])
+@pytest.mark.parametrize("name, options", [("rice", dict())])
 def test_rice_and_distributed_containers_unpack_singly(tmp_path, name, options):
-    """Rice containers never reach the native call, and a distributed
-    container's chunks all give up: every block counts as unpacked singly."""
+    """Rice containers never reach the native calls: every block counts as
+    unpacked singly.  (Distributed containers unpack by level:
+    `test_distributed_containers_unpack_by_level`.)"""
     mld, _, path = _indexed(tmp_path, name, 5, **options)
-    _, n_batched, n_single = _counted(lambda: _read(path, mld, 2, 0, 5))
-    assert (n_batched, n_single) == (0, 5)
+    _, counts = _counted(lambda: _read(path, mld, 2, 0, 5))
+    assert counts == (0, 0, 5)
+
+
+@pytest.mark.parametrize(
+    "name, batch, lo, hi",
+    [("two_level", 2, 0, 5), ("two_level", 3, 1, 5), ("three_level", 2, 0, 5), ("three_level", 4, 1, 4)],
+)
+def test_distributed_containers_unpack_by_level(tmp_path, per_block, name, batch, lo, hi):
+    """A distributed container's chunks unpack in one per-level native call
+    each: every block counts as unpacked by level, none singly, and the
+    reader's slices equal the per-block path's byte for byte."""
+    mld, blob, path = _indexed(tmp_path, name, 5, distributed=True)
+    offsets = read_index(blob)
+    held = [[lv for lv, _ in unpack_block(mld.config, blob, int(o))[0]] for o in offsets[:-1]]
+    assert any(len(h) > 1 for h in held)
+    rows, counts = _counted(lambda: _read(path, mld, batch, lo, hi))
+    assert counts == (0, hi - lo, 0)
+    per_block()
+    single, counts = _counted(lambda: _read(path, mld, batch, lo, hi))
+    assert counts == (0, 0, hi - lo)
+    assert rows.dtype == single.dtype and rows.tobytes() == single.tobytes()
+
+
+@pytest.mark.parametrize("name", ["two_level", "three_level"])
+def test_records_unpacked_by_level_come_through_units(tmp_path, monkeypatch, name):
+    """A chunk unpacked by level gets its decode units from `_units`, given
+    the chunk's records: every chunk of a distributed slice passes through
+    it, and a level left out there is left out of the rows."""
+    mld, _, path = _indexed(tmp_path, name, 5, distributed=True)
+    sound = _read(path, mld, 2, 0, 5)
+    real = CorpusEncoder._units
+    seen = []
+
+    def units(self, chunk, top, mode):
+        out = real(self, chunk, top, mode)
+        seen.append((type(chunk).__name__, [u[1] for u in out]))
+        return [u for u in out if u[1] != 0] if drop else out
+
+    monkeypatch.setattr(CorpusEncoder, "_units", units)
+    drop = False
+    rows, counts = _counted(lambda: _read(path, mld, 2, 0, 5))
+    assert counts == (0, 5, 0) and rows.tobytes() == sound.tobytes()
+    assert [kind for kind, _ in seen] == ["_ChunkRecords"] * 3
+    assert any(0 in levels for _, levels in seen)
+    drop = True
+    dropped = _read(path, mld, 2, 0, 5)
+    assert dropped.tobytes() != sound.tobytes()
 
 
 def test_decode_takes_the_footer_when_current(per_block):
@@ -379,12 +593,12 @@ def test_decode_takes_the_footer_when_current(per_block):
     xs = _corpus(mld, 5, seed=31)
     plain = codec.encode(xs)
     indexed = codec.encode(xs, index=True)
-    a, n_batched, n_single = _counted(lambda: codec.decode(indexed))
-    assert (n_batched, n_single) == (5, 0)
-    b, n_batched, n_single = _counted(lambda: codec.decode(plain))
-    assert (n_batched, n_single) == (0, 5)
-    c, n_batched, n_single = _counted(lambda: np.stack(list(codec.decode_stream(indexed))))
-    assert (n_batched, n_single) == (5, 0)
+    a, counts = _counted(lambda: codec.decode(indexed))
+    assert counts == (5, 0, 0)
+    b, counts = _counted(lambda: codec.decode(plain))
+    assert counts == (0, 0, 5)
+    c, counts = _counted(lambda: np.stack(list(codec.decode_stream(indexed))))
+    assert counts == (5, 0, 0)
     per_block()
     d = codec.decode(indexed)
     assert a.tobytes() == b.tobytes() == c.tobytes() == d.tobytes()
@@ -398,23 +612,27 @@ def _fail_build(monkeypatch, tmp_path):
     monkeypatch.setattr(record_pack, "_BUILD_DIR", str(tmp_path / "build"))
 
 
+@pytest.mark.parametrize(
+    "name, options, native", [("flat", dict(), (5, 0, 0)), ("two_level", dict(distributed=True), (0, 5, 0))]
+)
 @pytest.mark.parametrize("how", ["no_native_env", "build_fails"])
-def test_without_the_library_reader_rows_unchanged(tmp_path, monkeypatch, how):
+def test_without_the_library_reader_rows_unchanged(tmp_path, monkeypatch, how, name, options, native):
     """With HSC_TPU_NO_NATIVE set, or a build that fails, the loader gives
     nothing, every block unpacks singly, and the reader's slices are the
-    batched path's, byte for byte."""
-    mld, _, path = _indexed(tmp_path, "flat", 6)
-    rows, n_batched, _ = _counted(lambda: _read(path, mld, 4, 1, 6))
-    assert n_batched == 5
+    native paths' (batched, or by level for a distributed container), byte
+    for byte."""
+    mld, _, path = _indexed(tmp_path, name, 6, **options)
+    rows, counts = _counted(lambda: _read(path, mld, 4, 1, 6))
+    assert counts == native
     monkeypatch.setattr(record_pack, "_tried", False)
     monkeypatch.setattr(record_pack, "_lib", None)
     if how == "no_native_env":
         monkeypatch.setenv("HSC_TPU_NO_NATIVE", "1")
     else:
         _fail_build(monkeypatch, tmp_path)
-    single, n_batched, n_single = _counted(lambda: _read(path, mld, 4, 1, 6))
+    single, counts = _counted(lambda: _read(path, mld, 4, 1, 6))
     assert not record_pack.available()
-    assert (n_batched, n_single) == (0, 5)
+    assert counts == (0, 0, 5)
     assert single.tobytes() == rows.tobytes()
 
 
@@ -449,6 +667,6 @@ def test_mesh_reader_rows_equal_one_device(tmp_path):
     mld, _, path = _indexed(tmp_path, "flat", 7)
     one = _read(path, mld, 3, 0, 7)
     mesh = make_mesh({"data": 2}, devices=["cpu"] * 2)
-    rows, n_batched, n_single = _counted(lambda: _read(path, mld, 3, 0, 7, mesh=mesh))
-    assert (n_batched, n_single) == (7, 0)
+    rows, counts = _counted(lambda: _read(path, mld, 3, 0, 7, mesh=mesh))
+    assert counts == (7, 0, 0)
     assert rows.tobytes() == one.tobytes()
